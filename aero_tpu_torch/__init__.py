@@ -1,0 +1,28 @@
+"""aero-tpu on PyTorch + CUDA: the port of ``aero_tpu`` to an NVIDIA H100.
+
+The JAX package ``aero_tpu`` stays the reference; this package mirrors its
+layout and names so each module's counterpart is found at the same path:
+
+- ``aero_tpu_torch.device``      device selection (no silent CPU fallback)
+                                 and full-fp32 math on the card.
+- ``aero_tpu_torch.ops``         NCO, streaming FIR, block statistics, and
+                                 the hand-written CUDA Viterbi kernel
+                                 (``ops/viterbi_kernel.py`` +
+                                 ``csrc/viterbi.cu``).
+- ``aero_tpu_torch.models``      the continuous MSK demodulator, batched
+                                 over a VFO axis, and its coarse-frequency
+                                 estimator.
+- ``aero_tpu_torch.channelizer`` the WOLA polyphase filterbank.
+- ``aero_tpu_torch.protocol``    Viterbi (plain torch twin + host streaming
+                                 decoder), batched P-channel framing, and
+                                 verbatim copies of the jax-free framers.
+- ``aero_tpu_torch.runtime``     the fused station and its CLI.
+- ``aero_tpu_torch.convert``     carries JAX state trees into the port and
+                                 back (the parity tests' teacher forcing).
+
+The package imports ``torch``, numpy and scipy, never ``jax``.  From
+``aero_tpu`` it imports only ``aero_tpu.native`` and
+``aero_tpu.utils.signals``, both jax-free.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,53 @@
+"""Numerically-controlled oscillators as vectorized phase ramps (torch).
+
+Counterpart of ``aero_tpu/ops/nco.py``.  Phase is carried in cycles and
+wrapped with a floor-mod, so float32 never accumulates magnitude.  The
+floor-mod is ``torch.remainder`` (like ``jnp.mod``), never ``torch.fmod``:
+ramps go negative with negative residual frequencies, and fmod would then
+return negative phases.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def cis(angle: torch.Tensor) -> torch.Tensor:
+    """exp(1j * angle) as complex64 (the JAX code's
+    ``jnp.exp(1j * angle).astype(complex64)``)."""
+    return torch.polar(torch.ones_like(angle), angle)
+
+
+def nco_init(phase_cycles=0.0, device="cpu", batch_shape=()):
+    """State = current phase in cycles, float32 of ``batch_shape``."""
+    return torch.full(batch_shape, float(phase_cycles), dtype=torch.float32,
+                      device=device)
+
+
+def nco_phase_ramp(state, freq_norm, length: int):
+    """Return (new_state, phase ramp in cycles, shape [..., length]).
+
+    ``freq_norm`` = f/Fs in cycles/sample, a tensor shaped like ``state``
+    (or a Python float)."""
+    freq_norm = torch.as_tensor(freq_norm, dtype=state.dtype,
+                                device=state.device).expand(state.shape)
+    n = torch.arange(length, dtype=state.dtype, device=state.device)
+    ramp = state[..., None] + freq_norm[..., None] * n
+    new_state = torch.remainder(state + freq_norm * length, 1.0)
+    return new_state, torch.remainder(ramp, 1.0)
+
+
+def nco_mix(state, x, freq_norm, conj: bool = False, extra_cycles=None):
+    """Mix a block by ``exp(+/- 2 pi j * (phi0 + f n [+ extra]))``.
+
+    x: [..., T] complex or real.  ``extra_cycles`` [..., T] adds a
+    per-sample phase (cycles) inside the single exp, as the JAX version
+    does for the Doppler chirp.  Returns (new_state, mixed block)."""
+    new_state, ramp = nco_phase_ramp(state, freq_norm, x.shape[-1])
+    if extra_cycles is not None:
+        ramp = torch.remainder(ramp + extra_cycles, 1.0)
+    ang = (2.0 * math.pi) * ramp
+    osc = cis(-ang if conj else ang)
+    return new_state, x * osc

@@ -1,0 +1,491 @@
+"""Device-resident station on PyTorch: one device step per wideband block.
+
+Counterpart of ``aero_tpu/runtime/fused_station.py`` (read its docstring
+for the design).  Per wideband block the step does, on the station's
+device,
+
+    quantized IQ (int2/int4/int8/int16/float32)
+      -> dequantize -> complex wideband
+      -> one WOLA polyphase filterbank pass per output rate (all VFOs)
+      -> per-VFO residual mix -> real audio
+      -> batched MSK demod per rate group (600/1200 P channels)
+         + per-VFO signal hunting
+      -> ONE packed uint8 buffer: soft bits [B, n] + float32 telemetry
+         (lock/mse/EbN0/freq/slip) viewed as bytes
+
+and only that buffer leaves the device; its layout is byte-compatible with
+the JAX station's.  Host work (framing, SU dispatch, ACARS) is the same
+code as in JAX.
+
+This slice serves continuous MSK 600/1200 groups only.  OQPSK 8400/10500
+VFOs (ROADMAP A5) and burst R/T VFOs (ROADMAP A6) raise
+NotImplementedError at construction.
+
+``blocks_per_step``: m blocks upload together and run as m steps before
+one packed [m, n] result is queued.  ``pipeline_depth``: d such results
+stay in flight (the device runs ahead of the host framing) before the host
+copies the oldest back.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from collections import defaultdict, deque
+
+import numpy as np
+import torch
+
+from aero_tpu_torch.channelizer.config import ChannelizerConfig
+from aero_tpu_torch.channelizer.pfb import (pfb_channelize,
+                                            pfb_channelize_fused,
+                                            pfb_bin_for_freq, pfb_init)
+from aero_tpu_torch.device import resolve_device
+from aero_tpu_torch.models import msk as _msk
+from aero_tpu_torch.ops.nco import cis
+from aero_tpu_torch.protocol.framing import PChannelFramer, apply_slip
+from aero_tpu_torch.protocol.su_dispatch import PChannelSUDispatcher
+from aero_tpu_torch.runtime.station import (StationStats,
+                                            account_framer_events,
+                                            account_burst_outputs)
+
+# 2-bit dequantization gain: levels {-3,-1,+1,+3} * INT2_GAIN * sigma
+INT2_GAIN = 0.47
+
+# burst audio scale of the packed buffer (the JAX wire layout; no burst
+# group exists in this slice, so _drain's burst branch never runs)
+AUDIO_I16_SCALE = 4096.0
+
+# per-VFO telemetry floats packed after the soft bits:
+# signal / mse / ebno / freq / slip
+TEL_SLOTS = 5
+
+
+class FusedStation:
+    """One device step per block over a uniform MSK sub-VFO bank."""
+
+    def __init__(self, cfg: ChannelizerConfig, on_acars=None,
+                 station_id: str = "AERO-TPU", ingest_dtype: str = "int16",
+                 gain: float = 10.0, pipeline: bool = True,
+                 pipeline_depth: int = 2, blocks_per_step: int = 1,
+                 base_block: int = 16000, hunt: bool = True,
+                 hunt_max_tries: int = 6, aircraft_db=None,
+                 batch_host_framing: bool = False, device="cuda"):
+        assert not cfg.mains, "FusedStation serves sub-VFO banks only"
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.fs = cfg.sample_rate
+        self.station_id = station_id
+        self.on_acars = on_acars or (lambda vfo, item: None)
+        self.stats = StationStats()
+        self.ingest_dtype = ingest_dtype
+        if isinstance(aircraft_db, str):
+            from aero_tpu_torch.protocol.database import DataBaseCSVUser
+            aircraft_db = DataBaseCSVUser(aircraft_db)
+        self._db = aircraft_db
+        self.hunt = hunt
+        self.hunt_max_tries = int(hunt_max_tries)
+        self._iscale = {"int2": 1.0, "int4": 7.0, "int8": 127.0,
+                        "int16": 32767.0, "float32": 1.0}[ingest_dtype]
+
+        # group sub VFOs by (out_rate, data_rate, burst); one PFB pass per
+        # distinct out_rate
+        groups = defaultdict(list)
+        for i, s in enumerate(cfg.subs):
+            if bool(getattr(s, "burst", False)):
+                raise NotImplementedError(
+                    f"burst VFO {s.topic!r}: burst R/T groups are not ported "
+                    "to aero_tpu_torch yet (ROADMAP A6)")
+            if s.data_rate in (8400, 10500):
+                raise NotImplementedError(
+                    f"VFO {s.topic!r}: OQPSK {s.data_rate} is not ported to "
+                    "aero_tpu_torch yet (ROADMAP A5)")
+            if s.data_rate not in (600, 1200):
+                raise ValueError(
+                    f"VFO {s.topic!r}: unsupported data_rate {s.data_rate}")
+            groups[(s.out_rate, s.data_rate, False)].append(i)
+        self.groups = dict(groups)
+        self._order = sorted(self.groups)
+
+        self._M = {}
+        self._K = {}
+        for out_rate, _, _ in self.groups:
+            K = int(round(2 * self.fs / out_rate))
+            assert abs(2 * self.fs / out_rate - K) < 1e-9
+            self._K[out_rate], self._M[out_rate] = K, K // 2
+        self.block_len = max(base_block * M for M in self._M.values())
+
+        self._group_cfg = {}
+        self._params = {}
+        self._hunt_cfg = {}
+        self.topics = {}
+        self.framers = {}
+        self.dispatchers = {}
+        self._batch_banks = {}
+        for key, idxs in self.groups.items():
+            out_rate, rate, _ = key
+            K = self._K[out_rate]
+            F = self.block_len // self._M[out_rate]
+            bins, resid = [], []
+            for i in idxs:
+                delta = cfg.subs[i].freq - cfg.center_frequency
+                k = pfb_bin_for_freq(delta, self.fs, K)
+                kc = k if k < K // 2 else k - K
+                bins.append(k)
+                resid.append(-(delta - kc * self.fs / K) / out_rate)
+            self._params[key] = (
+                torch.as_tensor(np.asarray(bins, np.int64),
+                                device=self.device),
+                torch.as_tensor(np.asarray(resid, np.float32),
+                                device=self.device))
+            self.topics[key] = [cfg.subs[i].topic for i in idxs]
+
+            nfft = min(8192, 1 << (F.bit_length() - 1))
+            dcfg = _msk.make_config(float(out_rate), float(rate),
+                                    block_len=F, nfft=nfft)
+            self._group_cfg[key] = (_msk, dcfg)
+            # hunter scan (L band), capped below the audio Nyquist minus
+            # half the symbol rate (ref decode/decode.cpp:169,198)
+            lo, hi, bw = 0.0, 6000.0, 900.0
+            hi = min(hi, out_rate / 2.0 - rate / 2.0)
+            self._hunt_cfg[key] = (lo, hi, bw, dcfg.freq_center)
+            group_topics = self.topics[key]
+            if batch_host_framing:
+                # one batched decode per drain for all pending frames of
+                # the group, on the station's device
+                from aero_tpu_torch.protocol.batch_framing import (
+                    BatchPChannelFramerBank)
+                bank = BatchPChannelFramerBank(rate, group_topics,
+                                               device=self.device)
+                self._batch_banks[key] = bank
+                for t in group_topics:
+                    self.framers[t] = bank.framers[t]
+                    self.dispatchers[t] = PChannelSUDispatcher(
+                        on_acars=self._mk_sink(t), db=self._db)
+                continue
+            for t in group_topics:
+                self.framers[t] = PChannelFramer(rate)
+                self.dispatchers[t] = PChannelSUDispatcher(
+                    on_acars=self._mk_sink(t), db=self._db)
+
+        self._gain = gain
+        # output packing: soft bits of every group, then float32 telemetry
+        # viewed as bytes — the JAX station's exact layout
+        self._soft_ofs = {}
+        self._tel_ofs = {}
+        soft_pos = tel_pos = 0
+        for key in self._order:
+            nb = len(self.groups[key])
+            _, dcfg = self._group_cfg[key]
+            per_vfo = int(round(dcfg.block_len * dcfg.fb / dcfg.fs))
+            self._soft_ofs[key] = (soft_pos, per_vfo)
+            soft_pos += nb * per_vfo
+            self._tel_ofs[key] = tel_pos
+            tel_pos += TEL_SLOTS * nb
+        self._soft_total = soft_pos
+        self._state = self._init_state()
+        self.pipeline_depth = pipeline_depth if pipeline else 0
+        self.blocks_per_step = max(1, int(blocks_per_step))
+        self._inflight = deque()
+        self._pending = []
+
+    def _mk_sink(self, topic):
+        def sink(item):
+            self.stats.acars += 1
+            self.on_acars(topic, item)
+        return sink
+
+    # ---- device step ----
+
+    def _init_state(self):
+        """{"pfb": {out_rate: complex64 [L-M]}, "grp": {key: {"phase" [nb],
+        "demod": MskState [nb, ...], "hunt": {"tries", "center"} [nb]}}}
+        (``convert`` maps it to and from the JAX station's tree)."""
+        st = {"pfb": {}, "grp": {}}
+        for out_rate, K in self._K.items():
+            st["pfb"][out_rate] = pfb_init(K, device=self.device)
+        for key, idxs in self.groups.items():
+            nb = len(idxs)
+            _, dcfg = self._group_cfg[key]
+            g = {"phase": torch.zeros(nb, dtype=torch.float32,
+                                      device=self.device),
+                 "demod": _msk.msk_init(dcfg, nb, self.device)}
+            if self.hunt:
+                center0 = self._hunt_cfg[key][3]
+                g["hunt"] = {
+                    "tries": torch.zeros(nb, dtype=torch.int32,
+                                         device=self.device),
+                    "center": torch.full((nb,), center0, dtype=torch.float32,
+                                         device=self.device),
+                }
+            st["grp"][key] = g
+        return st
+
+    def _dequantize(self, iq2, scale):
+        """One quantized block + its scale -> complex64 wideband [T].
+
+        int2: [T/2] uint8, 4 codes per byte (s0.re s0.im s1.re s1.im from
+        the MSB; bit1 = sign, bit0 = |x| >= sigma), the layout ``quantize``
+        writes.  int4: [T] uint8, re << 4 | im as two's-complement nibbles.
+        Others: planar [2, T].  Shifts and masks stay in uint8."""
+        if self.ingest_dtype == "int2":
+            c = torch.stack([iq2 >> 6, (iq2 >> 4) & 3,
+                             (iq2 >> 2) & 3, iq2 & 3])
+            v = (((c & 2).to(torch.float32) - 1.0)
+                 * (1.0 + 2.0 * (c & 1).to(torch.float32)))
+            v = v * (INT2_GAIN * scale)
+            re = torch.stack([v[0], v[2]], dim=-1).reshape(-1)
+            im = torch.stack([v[1], v[3]], dim=-1).reshape(-1)
+            return torch.complex(re, im)
+        if self.ingest_dtype == "int4":
+            hi = (iq2 >> 4).to(torch.int32)
+            lo = (iq2 & 0xF).to(torch.int32)
+            re = torch.where(hi > 7, hi - 16, hi).to(torch.float32)
+            im = torch.where(lo > 7, lo - 16, lo).to(torch.float32)
+            return torch.complex(re / self._iscale, im / self._iscale)
+        return torch.complex(iq2[0].to(torch.float32) / self._iscale,
+                             iq2[1].to(torch.float32) / self._iscale)
+
+    def _hunt_update(self, key, s2, sig, hunt):
+        """Batched SignalHunter: count consecutive no-signal blocks per
+        VFO; every hunt_max_tries misses step the audio centre by
+        bandwidth/2 across [lo, hi] with wrap and force re-acquisition
+        there (ref decode/hunter.cpp:20-40)."""
+        lo, hi, bw, _ = self._hunt_cfg[key]
+        tries = torch.where(sig, torch.zeros_like(hunt["tries"]),
+                            hunt["tries"] + 1)
+        fire = tries >= self.hunt_max_tries
+        tries = torch.where(fire, torch.zeros_like(tries), tries)
+        center = torch.where(fire, hunt["center"] + bw / 2.0, hunt["center"])
+        center = torch.where(center > hi, torch.full_like(center,
+                                                          lo + bw / 2.0),
+                             center)
+        _, dcfg = self._group_cfg[key]
+        tune = torch.clamp(center, 100.0, dcfg.fs / 2.0 - 100.0)
+        f = fire[:, None]
+        s2 = s2._replace(
+            freq=torch.where(fire, tune, s2.freq),
+            mse=torch.where(fire, torch.full_like(s2.mse, 2.0), s2.mse),
+            have_lock_refs=s2.have_lock_refs & ~fire,
+            agc_ema=torch.where(fire, torch.zeros_like(s2.agc_ema),
+                                s2.agc_ema),
+            coarse_y=torch.where(f, torch.full_like(s2.coarse_y, 20.0),
+                                 s2.coarse_y),
+            # stale Doppler-slope / clock-rate carries would chirp the
+            # newly hunted band and block re-acquisition there
+            slope=torch.where(fire, torch.zeros_like(s2.slope), s2.slope),
+            grid_rate=torch.where(fire, torch.zeros_like(s2.grid_rate),
+                                  s2.grid_rate))
+        return s2, {"tries": tries, "center": center}
+
+    def _step(self, state, iq2, scale):
+        """One block on the device: (state, quantized block, scale) ->
+        (new state, packed uint8 buffer)."""
+        x = self._dequantize(iq2, scale)
+        new = {"pfb": {}, "grp": {}}
+        z_by_rate = {}
+        for out_rate, K in self._K.items():
+            chan = (pfb_channelize_fused
+                    if (x.shape[-1] // (K // 2)) % 2 == 0
+                    else pfb_channelize)
+            new["pfb"][out_rate], z_by_rate[out_rate] = chan(
+                state["pfb"][out_rate], x, K)
+        soft_parts, tel_parts = [], []
+        for key in self._order:
+            out_rate = key[0]
+            _, dcfg = self._group_cfg[key]
+            bins, resid = self._params[key]
+            gst = state["grp"][key]
+            zb = z_by_rate[out_rate][bins]
+            F = zb.shape[1]
+            # residual mix: floor-mod of a float32 ramp (F = 16000 per
+            # block), as JAX; torch.remainder, never fmod — the residuals
+            # are negative for VFOs above their bin centre
+            n = torch.arange(F, dtype=torch.float32, device=self.device)
+            ramp = gst["phase"][:, None] + resid[:, None] * n
+            osc = cis((2.0 * math.pi) * torch.remainder(ramp, 1.0))
+            audio = (zb * osc).real * self._gain
+            ng = {"phase": torch.remainder(gst["phase"] + resid * F, 1.0)}
+
+            s2, out = _msk.msk_step(gst["demod"], audio, dcfg)
+            if "hunt" in gst:
+                s2, ng["hunt"] = self._hunt_update(key, s2, out["signal"],
+                                                   gst["hunt"])
+            ng["demod"] = s2
+            new["grp"][key] = ng
+            soft_parts.append(out["soft_bits"].reshape(-1))
+            tel_parts.append(torch.stack(
+                [out["signal"].to(torch.float32), out["mse"], out["ebno"],
+                 s2.freq, out["slip"].to(torch.float32)]).reshape(-1))
+        # ONE flat uint8 buffer: soft bits, then the float32 telemetry's
+        # bytes (little-endian on both x86 hosts and the card)
+        tb = torch.cat(tel_parts).contiguous().view(torch.uint8)
+        return new, torch.cat(soft_parts + [tb])
+
+    # ---- host driver ----
+
+    def quantize(self, iq: np.ndarray):
+        """complex64 [T] -> ingest array of the configured dtype:
+        [2, T] for int8/int16/float32, packed [T] uint8 for int4,
+        (packed [T/2] uint8, sigma) for int2."""
+        if self.ingest_dtype != "float32":
+            from aero_tpu import native
+            if native.have_native_ingest():
+                return native.quantize_native(
+                    np.ascontiguousarray(iq, np.complex64),
+                    self.ingest_dtype)
+        lim = self._iscale
+        if self.ingest_dtype == "int2":
+            arms = np.stack([iq.real, iq.imag], axis=-1).astype(np.float32)
+            sigma = float(np.sqrt(np.mean(arms * arms))) or 1.0
+            code = (((arms >= 0).astype(np.uint8) << 1)
+                    | (np.abs(arms) >= sigma).astype(np.uint8))
+            q = code.reshape(-1, 4)
+            packed = ((q[:, 0] << 6) | (q[:, 1] << 4) | (q[:, 2] << 2)
+                      | q[:, 3]).astype(np.uint8)
+            return packed, np.float32(sigma)
+        if self.ingest_dtype == "int4":
+            re = np.clip(np.round(iq.real * lim), -8, 7).astype(np.int64)
+            im = np.clip(np.round(iq.imag * lim), -8, 7).astype(np.int64)
+            return (((re & 0xF) << 4) | (im & 0xF)).astype(np.uint8)
+        pair = np.stack([iq.real, iq.imag])
+        if self.ingest_dtype == "float32":
+            return pair.astype(np.float32)
+        return np.clip(pair * lim, -lim, lim).astype(self.ingest_dtype)
+
+    def _want_shape(self):
+        if self.ingest_dtype == "int2":
+            return (self.block_len // 2,)
+        if self.ingest_dtype == "int4":
+            return (self.block_len,)
+        return (2, self.block_len)
+
+    def process(self, iq_or_quantized):
+        """Feed one wideband block (block_len samples): complex64 [T],
+        a pre-quantized array, or a ``quantize()`` result."""
+        t0 = time.perf_counter()
+        scale = np.float32(1.0)
+        arr = iq_or_quantized
+        had_scale = isinstance(arr, tuple)
+        if had_scale:
+            arr, scale = arr
+        arr = np.asarray(arr)
+        if np.iscomplexobj(arr):
+            q = self.quantize(arr.astype(np.complex64))
+            arr, scale = q if isinstance(q, tuple) else (q, scale)
+        elif self.ingest_dtype == "int2" and not had_scale:
+            raise ValueError("int2 ingest requires (packed, sigma) as "
+                             "returned by quantize(); got a bare array")
+        if arr.shape != self._want_shape():
+            raise ValueError(f"block shape {arr.shape}, expected "
+                             f"{self._want_shape()}")
+        self._pending.append((arr, scale))
+        if len(self._pending) >= self.blocks_per_step:
+            self._dispatch()
+        while len(self._inflight) > self.pipeline_depth:
+            self._drain(self._inflight.popleft())
+        self.stats.wideband_samples += self.block_len
+        self.stats.wall_seconds += time.perf_counter() - t0
+
+    def _dispatch(self):
+        """Upload the pending blocks in one copy, run one device step per
+        block, and queue the stacked packed buffers [m, n]."""
+        iqs = torch.from_numpy(np.stack([a for a, _ in self._pending])).to(
+            self.device)
+        scales = torch.from_numpy(np.asarray(
+            [s for _, s in self._pending], np.float32)).to(self.device)
+        self._pending = []
+        rows = []
+        for i in range(iqs.shape[0]):
+            self._state, packed = self._step(self._state, iqs[i], scales[i])
+            rows.append(packed)
+        self._inflight.append(torch.stack(rows))
+
+    def flush(self):
+        """Drain pending and in-flight blocks (call at end of stream)."""
+        t0 = time.perf_counter()
+        if self._pending:
+            self._dispatch()
+        while self._inflight:
+            self._drain(self._inflight.popleft())
+        self.stats.wall_seconds += time.perf_counter() - t0
+
+    def _drain(self, packed):
+        rows = packed.cpu().numpy()
+        for row in rows:
+            soft = row[: self._soft_total]
+            self.telemetry = row[self._soft_total:].view(np.float32)
+            for key in self._order:
+                out_rate, rate, burst = key
+                pos, per_vfo = self._soft_ofs[key]
+                nb = len(self.groups[key])
+                sb = soft[pos: pos + nb * per_vfo].reshape(nb, per_vfo)
+                if burst:
+                    for r, topic in enumerate(self.topics[key]):
+                        audio = (sb[r].view(np.int16).astype(np.float32)
+                                 / AUDIO_I16_SCALE)
+                        account_burst_outputs(
+                            self.stats, self.burst_stats[topic],
+                            self.burst_demods[topic].process(audio),
+                            self.rt_framers[topic])
+                    continue
+                # timing-grid slips (5th telemetry slot) realign the soft
+                # stream before any deframer sees it — a clock-offset
+                # renormalization then costs two soft-bit erasures, not
+                # a frame (tests/test_impairments.py)
+                t0 = self._tel_ofs[key]
+                slips = self.telemetry[t0 + 4 * nb: t0 + 5 * nb]
+                if key in self._batch_banks:
+                    # one batched device decode for the whole group's
+                    # pending frames (the bank API takes plain arrays, so
+                    # slips are realigned here rather than in feed())
+                    evs_by_topic = self._batch_banks[key].feed(
+                        {topic: apply_slip(sb[r], int(slips[r]))
+                         for r, topic in enumerate(self.topics[key])})
+                    for topic, evs in evs_by_topic.items():
+                        account_framer_events(self.stats, rate, evs,
+                                              self.dispatchers.get(topic))
+                    continue
+                for r, topic in enumerate(self.topics[key]):
+                    account_framer_events(
+                        self.stats, rate,
+                        self.framers[topic].feed(sb[r].astype(np.float32),
+                                                 slip=int(slips[r])),
+                        self.dispatchers.get(topic))
+
+    def vfo_telemetry(self):
+        """Last drained block's per-VFO state by topic.
+
+        Continuous VFOs: (signal, mse, ebno, freq) from the device step.
+        Burst VFOs: device-side audio level/peak plus the host burst
+        counters (windows demodulated, R/T packets framed, last
+        tone_quality and carrier freq) — a dead burst watcher is now
+        distinguishable from a quiet channel (VERDICT r3 weak #3; the
+        reference's per-demod SignalStatus signals)."""
+        tel = getattr(self, "telemetry", None)
+        if tel is None:
+            return {}
+        out = {}
+        for key in self._order:
+            nb = len(self.groups[key])
+            t = tel[self._tel_ofs[key]:
+                    self._tel_ofs[key] + TEL_SLOTS * nb].reshape(TEL_SLOTS,
+                                                                 nb)
+            for row, topic in enumerate(self.topics[key]):
+                if key[2]:
+                    bs = self.burst_stats[topic]
+                    out[topic] = {"signal": bs["windows"] > 0,
+                                  "level": float(t[0, row]),
+                                  "peak": float(t[1, row]),
+                                  "windows": bs["windows"],
+                                  "packets": bs["packets"],
+                                  "tone_quality": bs["last_tone_quality"],
+                                  "freq": bs["last_freq"],
+                                  "burst": True}
+                else:
+                    out[topic] = {"signal": bool(t[0, row] > 0.5),
+                                  "mse": float(t[1, row]),
+                                  "ebno": float(t[2, row]),
+                                  "freq": float(t[3, row]),
+                                  "burst": False}
+        return out

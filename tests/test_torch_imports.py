@@ -1,0 +1,155 @@
+"""The port's import boundary and its drift guard against ``aero_tpu``.
+
+1. With ``jax`` blocked on the import path (the condition on a machine
+   that has no JAX), every module of ``aero_tpu_torch`` imports.
+2. Statically, the port imports nothing of ``aero_tpu`` beyond
+   ``aero_tpu.native`` and ``aero_tpu.utils.signals``, and never ``jax``.
+3. Drift guard: each verbatim copy equals its ``aero_tpu`` original after
+   the ``aero_tpu.`` -> ``aero_tpu_torch.`` import rewrite, and the copied
+   functions and methods (station accounting, the fused station's
+   ``quantize`` / ``_drain`` / ``vfo_telemetry``, the batched framer
+   bank's ``flush``) parse to the same syntax tree as the originals, up to
+   the listed tensor substitutions.  A later fix to ``aero_tpu`` fails
+   here until the port takes it too.
+"""
+
+import ast
+import inspect
+import os
+import re
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "aero_tpu_torch")
+
+VERBATIM = ["protocol/crc.py", "protocol/scrambler.py",
+            "protocol/interleaver.py", "protocol/framing.py",
+            "protocol/isu.py", "protocol/acars.py", "protocol/su_dispatch.py",
+            "protocol/database.py", "channelizer/config.py", "ops/design.py",
+            "io/output.py", "io/forwarder.py"]
+
+ALLOWED_FROM_JAX_PACKAGE = {"aero_tpu", "aero_tpu.native",
+                            "aero_tpu.utils.signals"}
+
+_BLOCKED_IMPORT = r"""
+import importlib, pkgutil, sys
+class _NoJax:
+    def find_spec(self, name, path=None, target=None):
+        if name == "jax" or name.startswith("jax.") or name == "jaxlib":
+            raise ImportError("jax is blocked: " + name)
+sys.meta_path.insert(0, _NoJax())
+sys.path.insert(0, sys.argv[1])
+import aero_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(aero_tpu_torch.__path__,
+                                               "aero_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+assert not any(k == "jax" or k.startswith("jax.") for k in sys.modules)
+print(len(names))
+"""
+
+
+def _port_files():
+    for d, _, files in os.walk(PORT):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(d, f)
+
+
+def test_port_imports_with_jax_blocked():
+    res = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT, ROOT],
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip().splitlines()[-1]) >= 25
+
+
+def test_port_import_boundary_is_static():
+    bad = []
+    for path in _port_files():
+        tree = ast.parse(open(path).read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                mods = [node.module]
+                if node.module == "aero_tpu":
+                    mods = [f"aero_tpu.{a.name}" for a in node.names]
+            else:
+                continue
+            for m in mods:
+                top = m.split(".")[0]
+                if top in ("jax", "jaxlib") or (
+                        top == "aero_tpu"
+                        and m not in ALLOWED_FROM_JAX_PACKAGE):
+                    bad.append((os.path.relpath(path, ROOT), m))
+    assert not bad, bad
+
+
+def _rewrite_imports(src: str) -> str:
+    return re.sub(r"^(\s*(?:from|import) )aero_tpu\.", r"\1aero_tpu_torch.",
+                  src, flags=re.M)
+
+
+@pytest.mark.parametrize("rel", VERBATIM)
+def test_verbatim_copies_match(rel):
+    orig = open(os.path.join(ROOT, "aero_tpu", rel)).read()
+    port = open(os.path.join(PORT, rel)).read()
+    assert port == _rewrite_imports(orig), (
+        f"aero_tpu_torch/{rel} drifted from aero_tpu/{rel}: copy it again "
+        "(only import lines may differ)")
+
+
+def _tree(obj, subs=()):
+    src = textwrap.dedent(inspect.getsource(obj))
+    src = _rewrite_imports(src)
+    for a, b in subs:
+        assert a in src, (obj, a)
+        src = src.replace(a, b)
+    return ast.dump(ast.parse(src))
+
+
+_FLUSH_SUBS = (
+    ("jnp.asarray(soft), jnp.asarray(prefixes)",
+     "self._tensor(soft), self._tensor(prefixes)"),
+    ('np.asarray(dec["info_bits"])', 'dec["info_bits"].cpu().numpy()'),
+    ('np.asarray(dec["su_ok"])', 'dec["su_ok"].cpu().numpy()'),
+)
+
+
+def _pairs():
+    from aero_tpu.runtime import station as js, fused_station as jf
+    from aero_tpu.protocol import batch_framing as jb
+    from aero_tpu_torch.runtime import station as ts, fused_station as tf
+    from aero_tpu_torch.protocol import batch_framing as tb
+    return {
+        "StationStats": (js.StationStats, ts.StationStats, ()),
+        "new_burst_stats": (js.new_burst_stats, ts.new_burst_stats, ()),
+        "account_burst_outputs": (js.account_burst_outputs,
+                                  ts.account_burst_outputs, ()),
+        "account_framer_events": (js.account_framer_events,
+                                  ts.account_framer_events, ()),
+        "quantize": (jf.FusedStation.quantize, tf.FusedStation.quantize, ()),
+        "_drain": (jf.FusedStation._drain, tf.FusedStation._drain,
+                   (("np.asarray(packed)", "packed.cpu().numpy()"),)),
+        "vfo_telemetry": (jf.FusedStation.vfo_telemetry,
+                          tf.FusedStation.vfo_telemetry, ()),
+        "bank.feed": (jb.BatchPChannelFramerBank.feed,
+                      tb.BatchPChannelFramerBank.feed, ()),
+        "bank.flush": (jb.BatchPChannelFramerBank.flush,
+                       tb.BatchPChannelFramerBank.flush, _FLUSH_SUBS),
+    }
+
+
+@pytest.mark.parametrize("name", ["StationStats", "new_burst_stats",
+                                  "account_burst_outputs",
+                                  "account_framer_events", "quantize",
+                                  "_drain", "vfo_telemetry", "bank.feed",
+                                  "bank.flush"])
+def test_copied_code_matches_original(name):
+    orig, port, subs = _pairs()[name]
+    assert _tree(port) == _tree(orig, subs), (
+        f"{name}: the port's copy drifted from aero_tpu — take the change")
