@@ -9,12 +9,14 @@ layout and names so each module's counterpart is found at the same path:
                                  the hand-written CUDA Viterbi kernel
                                  (``ops/viterbi_kernel.py`` +
                                  ``csrc/viterbi.cu``).
-- ``aero_tpu_torch.models``      the continuous MSK demodulator, batched
-                                 over a VFO axis, and its coarse-frequency
-                                 estimator.
+- ``aero_tpu_torch.models``      the continuous MSK and OQPSK
+                                 demodulators, batched over a VFO axis,
+                                 their coarse-frequency estimator, and the
+                                 burst (R/T) window demodulators.
 - ``aero_tpu_torch.channelizer`` the WOLA polyphase filterbank.
 - ``aero_tpu_torch.protocol``    Viterbi (plain torch twin + host streaming
-                                 decoder), batched P-channel framing, and
+                                 decoder), batched P-channel framing, the
+                                 R/T framer with an injected decoder, and
                                  verbatim copies of the jax-free framers.
 - ``aero_tpu_torch.runtime``     the fused station and its CLI.
 - ``aero_tpu_torch.convert``     carries JAX state trees into the port and

@@ -1,2 +1,3 @@
-"""Demodulators ("models") on torch: the continuous MSK demodulator and
-its coarse-frequency estimator, batched over a VFO axis."""
+"""Demodulators ("models") on torch: the continuous MSK and OQPSK
+demodulators and their coarse-frequency estimator, batched over a VFO
+axis, and the burst (R/T) window demodulators."""

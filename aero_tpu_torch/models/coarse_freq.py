@@ -69,3 +69,25 @@ def coarse_freq_estimate(y_state, x, *, nfft: int, fb: float, fs: float,
     loc = torch.argmax(z, dim=-1)
     est = (loc - nfft // 2).to(torch.float32) * hzperbin * 0.5
     return y, est
+
+
+def spectrum_snapshot(y_state, nbins: int = 256):
+    """Decimated smoothed dB fold spectrum (max over groups of nfft/nbins
+    bins) for displays and telemetry."""
+    nfft = y_state.shape[-1]
+    step = nfft // nbins
+    return torch.amax(y_state[..., : nbins * step].reshape(
+        y_state.shape[:-1] + (nbins, step)), dim=-1)
+
+
+def spectrum_display(coarse_y, fs: float, nbins: int = 256):
+    """(freqs_hz, dB) numpy display arrays from the smoothed fold-spectrum
+    carry (numpy or tensor): frequencies are signal offsets relative to
+    the current tune (the squared-signal axis halved)."""
+    import numpy as _np
+    y = spectrum_snapshot(torch.as_tensor(coarse_y), nbins).cpu().numpy()
+    nfft = coarse_y.shape[-1]
+    step = nfft // nbins
+    hzperbin = fs / nfft
+    freqs = ((_np.arange(nbins) + 0.5) * step - nfft / 2) * hzperbin * 0.5
+    return freqs.astype(_np.float32), y

@@ -1,12 +1,13 @@
 """Streaming block FIR filtering (torch).
 
-Counterpart of ``aero_tpu/ops/fir.py`` (``fir_init`` / ``fir_apply``).
-The carry is the last ``ntaps-1`` inputs (overlap-save), so a stream cut
-into blocks filters exactly like one long stream: the causal alignment
-``y[n] = sum_k h[k] x[n-k]`` holds across block boundaries.  A complex
-input with real taps is filtered as two real convolutions, as the JAX
-``_corr_valid`` does.  On the card the convolution runs in cuDNN, which
-must be held at full float32 (``device.set_fp32_precision``).
+Counterpart of ``aero_tpu/ops/fir.py`` (``fir_init`` / ``fir_apply`` /
+``fir_apply_fft``).  The carry is the last ``ntaps-1`` inputs
+(overlap-save), so a stream cut into blocks filters exactly like one long
+stream: the causal alignment ``y[n] = sum_k h[k] x[n-k]`` holds across
+block boundaries.  A complex input with real taps is filtered as two real
+convolutions, as the JAX ``_corr_valid`` does.  On the card the
+convolution runs in cuDNN, which must be held at full float32
+(``device.set_fp32_precision``).
 """
 
 from __future__ import annotations
@@ -31,6 +32,24 @@ def _corr_valid(x, h):
     return _corr_valid_real(x, h)
 
 
+def convolve_same(x, k):
+    """``jnp.convolve(x, k, mode="same")`` along the last axis of x
+    [..., N] (real or complex) with a real kernel k [M], M <= N.
+
+    "same" keeps the N samples of the full convolution from index
+    (M-1)//2 on, the numpy alignment: for an even M the window is one
+    sample later than a symmetric ``conv1d`` padding of M//2 a side would
+    give.  So the input is padded by M//2 on the left and (M-1)//2 on the
+    right, and correlated with the flipped kernel."""
+    if x.is_complex():
+        return torch.complex(convolve_same(x.real, k), convolve_same(x.imag, k))
+    M = k.shape[0]
+    lead = x.shape[:-1]
+    xb = F.pad(x.reshape(-1, 1, x.shape[-1]), (M // 2, (M - 1) // 2))
+    y = F.conv1d(xb, k.flip(0).reshape(1, 1, -1))
+    return y.reshape(lead + (y.shape[-1],))
+
+
 def fir_init(ntaps: int, batch_shape=(), dtype=torch.float32, device="cpu"):
     """History carry: the last ntaps-1 inputs (zeros initially)."""
     return torch.zeros(batch_shape + (ntaps - 1,), dtype=dtype, device=device)
@@ -44,5 +63,33 @@ def fir_apply(state, x, taps):
     k = taps.shape[0]
     xp = torch.cat([state, x], dim=-1)
     y = _corr_valid(xp, taps.flip(0))
+    new_state = xp[..., -(k - 1):] if k > 1 else state
+    return new_state, y
+
+
+def fir_apply_fft(state, x, taps):
+    """Causal FIR by FFT convolution, for long kernels (the 2049-tap RRC
+    of the 8400 bps demodulator).  Same contract as ``fir_apply``:
+    returns (new_state, y[..., T]), the carry is the last ntaps-1 inputs.
+
+    The JAX version is ``jss.fftconvolve(state ++ x, taps, "valid")``:
+    of the full convolution of the N = ntaps-1+T inputs it keeps the T
+    samples from index ntaps-1 on, each of which sees ntaps real inputs.
+    Here the transform length is the next power of two of the full
+    length N+ntaps-1 (JAX uses the full length itself), so the values
+    agree to float32 FFT error, not bit for bit."""
+    taps = torch.as_tensor(taps, dtype=torch.float32, device=x.device)
+    k = taps.shape[0]
+    xp = torch.cat([state, x], dim=-1)
+    full = xp.shape[-1] + k - 1
+    nfft = 1 << (full - 1).bit_length()
+    if xp.is_complex():
+        spec = torch.fft.fft(xp, n=nfft) * torch.fft.fft(
+            taps.to(xp.dtype), n=nfft)
+        y = torch.fft.ifft(spec, n=nfft)
+    else:
+        spec = torch.fft.rfft(xp, n=nfft) * torch.fft.rfft(taps, n=nfft)
+        y = torch.fft.irfft(spec, n=nfft)
+    y = y[..., k - 1: k - 1 + x.shape[-1]]
     new_state = xp[..., -(k - 1):] if k > 1 else state
     return new_state, y

@@ -16,6 +16,8 @@ with ``ctypes``.
 
 Any T is accepted (no padding to a chunk multiple) and B is the grid (no
 slicing into groups of streams).  ``LAUNCHES`` counts kernel launches.
+``stream_decoder(device)`` wraps it for one numpy stream, the R/T
+framer's checkpoint decodes (B=1, T = rows*32).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import os
 import shutil
 import subprocess
 
+import numpy as np
 import torch
 
 from aero_tpu_torch.protocol.viterbi import viterbi_decode_soft
@@ -119,3 +122,17 @@ def viterbi_decode_soft_cuda(soft: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"viterbi kernel launch failed: cudaError {err}")
     LAUNCHES += 1
     return bits
+
+
+def stream_decoder(device):
+    """A decoder of ONE soft stream, for the R/T framer's checkpoint
+    decodes: numpy soft bytes [2T] -> numpy bits [T] uint8, through
+    ``viterbi_decode_soft_cuda`` on a one-row tensor on ``device`` (the
+    kernel on a card, the plain-torch twin on the CPU)."""
+    dev = torch.device(device)
+
+    def decode(soft):
+        row = torch.from_numpy(np.ascontiguousarray(soft, np.float32))
+        return viterbi_decode_soft_cuda(row.reshape(1, -1).to(dev))[0].cpu(
+            ).numpy()
+    return decode

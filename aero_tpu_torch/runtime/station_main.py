@@ -5,8 +5,10 @@ The same CLI as ``aero_tpu.runtime.station_main``, with these differences:
 ``cuda``) picks the device and never falls back; ACARS application
 decoding (``acars_apps.enrich``: ADS-C/CPDLC) is not run yet.  Flags of
 what is not ported are absent rather than ignored: ``--checkpoint`` /
-``--checkpoint-every`` (ROADMAP A8), ``--voice-out`` (8400 voice, A5),
-and the JAX-only ``--platform`` / ``--compile-cache``.
+``--checkpoint-every`` (ROADMAP A8), and the JAX-only ``--platform`` /
+``--compile-cache``.  Every VFO kind of the JAX fused station is served:
+continuous MSK 600/1200 and OQPSK 10500 P channels, OQPSK 8400 C channels
+(voice frames to ``--voice-out``) and burst R/T watchers at 600/1200/10500.
 
 Usage:
   python -m aero_tpu_torch.runtime.station_main -c settings.ini \
@@ -28,9 +30,9 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="aero-station-torch",
         description="PyTorch/CUDA full-chain Inmarsat Aero station "
-                    "(continuous MSK 600/1200 VFOs; ACARS application "
-                    "decoding — ADS-C/CPDLC enrichment — is not ported "
-                    "yet)")
+                    "(P channels at 600/1200/10500, C channels at 8400, "
+                    "burst R/T watchers; ACARS application decoding — "
+                    "ADS-C/CPDLC enrichment — is not ported yet)")
     p.add_argument("-c", "--settings", required=True)
     p.add_argument("--iq-file", default=None, help="cf32 interleaved IQ")
     p.add_argument("--iq-stdin", action="store_true")
@@ -55,6 +57,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--aircraft-db", default=None, metavar="CSV",
                    help="aircraft registration DB CSV "
                         "(ICAO24,Registration,... — protocol/database.py)")
+    p.add_argument("--voice-out", default=None, metavar="FILE",
+                   help="append C-channel voice codec frames (300 B per "
+                        "frame, as decoded) to this file")
     p.add_argument("--batch-framing", action="store_true",
                    help="decode all P-channel frames of a rate group in "
                         "ONE batched call per drain (the CUDA Viterbi "
@@ -91,7 +96,15 @@ def main(argv=None, on_station=None) -> int:
         if fwd is not None:
             fwd.submit(args.station_id, False, item)
 
-    st = FusedStation(cfg, on_acars=on_acars, station_id=args.station_id,
+    voice_f = open(args.voice_out, "ab") if args.voice_out else None
+
+    def on_voice(topic, data, hex_aes):
+        if voice_f is not None:
+            voice_f.write(data)
+            voice_f.flush()
+
+    st = FusedStation(cfg, on_acars=on_acars, on_voice=on_voice,
+                      station_id=args.station_id,
                       ingest_dtype=args.ingest_dtype,
                       aircraft_db=args.aircraft_db, hunt=not args.no_hunt,
                       batch_host_framing=args.batch_framing, device=device)
@@ -107,6 +120,8 @@ def main(argv=None, on_station=None) -> int:
         s = st.stats
         dump = {"wideband_samples": s.wideband_samples, "frames": s.frames,
                 "su_ok": s.su_ok, "su_bad": s.su_bad, "acars": s.acars,
+                "burst_windows": s.burst_windows,
+                "burst_packets": s.burst_packets,
                 "vfos": st.vfo_telemetry()}
         print(json.dumps({"stats_on_sighup": dump}),
               file=sys.stderr, flush=True)
@@ -133,6 +148,8 @@ def main(argv=None, on_station=None) -> int:
                             s.realtime_factor / cfg.sample_rate, 2),
                         "frames": s.frames, "su_ok": s.su_ok,
                         "su_bad": s.su_bad, "acars": s.acars,
+                        "burst_windows": s.burst_windows,
+                        "burst_packets": s.burst_packets,
                     }}), file=sys.stderr, flush=True)
         st.flush()
 
@@ -165,6 +182,9 @@ def main(argv=None, on_station=None) -> int:
         final["forwarded"] = fwd.sent
         final["forward_dropped"] = fwd.dropped
         final["forward_errors"] = fwd.errors
+    if voice_f is not None:
+        final["voice_frames"] = s.voice_frames
+        voice_f.close()
     print(json.dumps({"final_stats": final}), file=sys.stderr)
     notifier.uninstall()
     return 0

@@ -11,20 +11,36 @@ Phases (any failure raises and the script exits non-zero):
    CUDA versions; CUDA must be available; full-fp32 math is set.
 2. The CUDA Viterbi kernel (built by nvcc for sm_90a from
    aero_tpu_torch/csrc/viterbi.cu) against its plain-torch twin on the
-   card, bit-exact, at the 1200 bps frame shape (B=64, T=631) and the
-   10500 shape (B=256, T=2551), on integral, float and all-tie (128)
-   soft inputs; both timed with CUDA events after warm-up.
-3. The main path: ``aero_tpu_torch.runtime.station_main.main`` in-process
-   with ``--backend fused --batch-framing --device cuda --ingest-dtype
-   int4`` on the 50-VFO MSK-1200 bank (1.536 MS/s at 1545 MHz, VFOs every
-   19 kHz, 1,024,000-sample blocks) over 14 blocks of wideband IQ that
-   carry distinct ACARS messages on 4 VFOs in noise.  Every planted
-   message must come out on its VFO with no bad SU on the content VFOs,
-   the kernel's launch count over this run must be > 0, and the station's
+   card, bit-exact, at the 1200 bps frame shape (B=64, T=631), the 10500
+   shape (B=256, T=2551) and the R/T checkpoint shapes (B=1, T=160, 352,
+   1600: R 5 rows, T 11 rows, MSK T 50 rows), on integral, float and
+   all-tie (128) soft inputs; timed with CUDA events after warm-up.
+3. The L-band path: ``aero_tpu_torch.runtime.station_main.main``
+   in-process with ``--backend fused --batch-framing --device cuda
+   --ingest-dtype int4`` on the 50-VFO MSK-1200 bank (1.536 MS/s at
+   1545 MHz, VFOs every 19 kHz, 1,024,000-sample blocks) plus the two
+   burst MSK-1200 R-channel watchers of configs/aor_w_54_lband.ini in free
+   raster slots, over 14 blocks of wideband IQ that carry distinct ACARS
+   messages on 4 VFOs and one R burst on one watcher, in noise.  Every
+   planted message and the R packet must come out, with no bad SU on the
+   content VFOs; the kernel's launch count must be > 0; the station's
    state tensors must live on the card.
-4. One station step on the card against the same step on the host CPU
-   (same state, same block): the packed buffer must agree within the
-   parity tests' tolerances.
+4. One step of that station on the card against the same step on the
+   host CPU (same state, same block): the packed buffers must agree
+   within the limits of tests/test_torch_cuda.py:check_packed.
+5. The C-band path: ``station_main.main`` with the same flags plus
+   ``--voice-out`` on a 44-VFO bank at 1.536 MS/s (48 kS/s channels,
+   filterbank K=64, 512,000-sample blocks): 32 OQPSK 10500 P channels,
+   8 OQPSK 8400 C channels and 4 burst OQPSK 10500 T watchers, 34 kHz
+   apart, over 27 blocks (9 s): distinct ACARS on 2 P VFOs, two C frames
+   of known voice and signalling on 1 C VFO, one T burst carrying ACARS
+   on 1 T watcher, noise on every VFO.  Every planted message must come
+   out on its VFO (no bad SU on the content P VFOs), the voice file must
+   hold the planted 300-byte frames in order, the kernel must have been
+   launched by the P bank and by the R/T framers (counted apart), and
+   the station's state tensors must live on the card.
+6. One step of the C-band station on the card against the same step on
+   the host CPU, as phase 4.
 
 The last two lines of standard output are the kernels' JSON record and the
 result line ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -48,20 +64,23 @@ import numpy as np
 import torch
 
 from aero_tpu_torch import convert
-from aero_tpu_torch.channelizer import load_ini
 from aero_tpu_torch.device import set_fp32_precision
 from aero_tpu_torch.models.msk import msk_modulate
 from aero_tpu_torch.ops import viterbi_kernel as vk
 from aero_tpu_torch.protocol.crc import append_crc16_bytes
 from aero_tpu_torch.protocol.framing import build_p_frames
 from aero_tpu_torch.protocol.isu import make_acars_userdata, segment_isu
+from aero_tpu_torch.protocol.rt_framing import build_r_burst
 from aero_tpu_torch.protocol.viterbi import viterbi_decode_soft
 from aero_tpu_torch.runtime import station_main
-from aero_tpu_torch.runtime.fused_station import FusedStation, TEL_SLOTS
+from aero_tpu_torch.runtime.fused_station import FusedStation
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "tests"))
-from torch_soft import soft_bytes  # noqa: E402  (shared with the tests)
+# shared with the tests (neither imports JAX)
+from torch_soft import soft_bytes  # noqa: E402
+from test_torch_cuda import (cband_ini, cband_layout,  # noqa: E402
+                             cband_wideband, check_packed, content_vfos)
 
 FS = 1536000
 CENTER = 1545000000
@@ -71,6 +90,21 @@ CONTENT = {3: ("VH-AAA", "CHIP SMOKE ALPHA", "CHIP SMOKE BRAVO"),
            17: ("N123CS", "CHIP SMOKE CHARLIE", "CHIP SMOKE DELTA"),
            31: ("G-SMKE", "CHIP SMOKE ECHO", "CHIP SMOKE FOXTROT"),
            46: ("C-FCUD", "CHIP SMOKE GOLF", "CHIP SMOKE HOTEL")}
+# the two burst R-channel watchers (1200 bps, burst=1) sit in the free
+# raster slots 50 and 51; one R burst is planted on the second, whose
+# frequency is 1 kHz from its filterbank bin centre (slot 50's is 4 kHz
+# off, which puts one image of the 6 kHz burst audio at 10 kHz, beyond
+# the filterbank's 9 kHz passband edge)
+R_SLOTS = (50, 51)
+R_PLANTED = R_SLOTS[1]
+R_INFO = (bytes([0x1B, 0x28, 0x0A, 0x0B, 0x0C, 0x77]) + b"SMOKE R"
+          ).ljust(17, b"\0")
+R_START_S = 3.0
+# the C-band bank (phase 5)
+CB_BLOCKS = 27
+CB_P_TEXTS = (("CHIP SMOKE CBAND ONE", "CHIP SMOKE CBAND TWO"),
+              ("CHIP SMOKE CBAND THREE", "CHIP SMOKE CBAND FOUR"))
+CB_T_TEXT = "CHIP SMOKE T BURST"
 
 
 def log(msg: str) -> None:
@@ -115,11 +149,11 @@ def phase_kernel(card: str) -> dict:
     t0 = time.perf_counter()
     so = vk.build(verbose=True)
     log(f"built {os.path.relpath(so, ROOT)} in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s (host; {card})")
     dev = torch.device("cuda")
     max_err = 0
     timing = {}
-    for B, T in ((64, 631), (256, 2551)):
+    for B, T in ((64, 631), (256, 2551), (1, 160), (1, 352), (1, 1600)):
         for kind in ("integral", "float", "all128"):
             soft = torch.from_numpy(soft_bytes(kind, B, T,
                                                seed=B + T)).to(dev)
@@ -139,27 +173,39 @@ def phase_kernel(card: str) -> dict:
         timing[(B, T)] = (ms, plain_ms)
         log(f"viterbi B={B} T={T}: kernel {ms:.4f} ms, plain torch "
             f"{plain_ms:.2f} ms  ({card})")
+    # the R/T framer's own decode entry point, as phases 3 and 5 call it
+    for T in (160, 352, 1600):
+        soft = soft_bytes("float", 1, T, seed=T)
+        got = vk.stream_decoder(dev)(soft[0])
+        want = viterbi_decode_soft(torch.from_numpy(soft))[0].numpy()
+        if not np.array_equal(got, want):
+            raise AssertionError(f"stream decoder != plain at T={T}")
     return {"max_abs_err": max_err, "timing": timing}
 
 
 # ---- phase 3 ---------------------------------------------------------------
 
 def bank_ini() -> str:
-    """The 50-VFO MSK-1200 bank of bench.py's fused-station headline."""
+    """The 50-VFO MSK-1200 bank of bench.py's fused-station headline, plus
+    the two burst R-channel watchers in raster slots 50 and 51."""
     vfos = "".join(
         f"{i + 1}\\frequency={CENTER + 2000 + i * 19000}\n"
         f"{i + 1}\\data_rate=1200\n{i + 1}\\topic=V{i}\n"
         f"{i + 1}\\gain=100\n" for i in range(N_VFOS))
+    vfos += "".join(
+        f"{i + 1}\\frequency={CENTER + 2000 + i * 19000}\n"
+        f"{i + 1}\\data_rate=1200\n{i + 1}\\topic=R{i}\n"
+        f"{i + 1}\\burst=1\n" for i in R_SLOTS)
     return (f"[General]\nsample_rate={FS}\ncenter_frequency={CENTER}\n"
-            f"[vfos]\nsize={N_VFOS}\n{vfos}")
+            f"[vfos]\nsize={N_VFOS + len(R_SLOTS)}\n{vfos}")
 
 
 def make_wideband(block_len: int, n_blocks: int,
                   seed: int = 0) -> np.ndarray:
     """Wideband IQ at 1.536 MS/s: one ACARS message per P frame on each
-    content VFO (then fill frames to the end), upconverted from 24 kS/s
-    audio with resample_poly and shifted to the VFO's frequency, plus
-    complex Gaussian noise."""
+    content VFO (then fill frames to the end) and one R burst on an R
+    watcher, upconverted from 24 kS/s audio with resample_poly and
+    shifted to the VFO's frequency, plus complex Gaussian noise."""
     from scipy.signal import resample_poly
     fill = append_crc16_bytes(bytes([0x01] + [0] * 9))
     n = block_len * n_blocks
@@ -184,7 +230,69 @@ def make_wideband(block_len: int, n_blocks: int,
         delta = 2000 + v * 19000
         wide[: len(bb)] += (bb * np.exp(2j * np.pi * delta * t[: len(bb)])
                             ).astype(np.complex64)
+    # the R burst at the watcher's audio centre (24 kS/s / 4) + 40 Hz
+    audio = msk_modulate(build_r_burst(R_INFO, preamble_bits=96), 24000,
+                         1200.0, freq=6040.0, amplitude=0.2)
+    bb = resample_poly(audio.astype(np.float64), 64, 1)
+    i0 = int(R_START_S * FS)
+    bb = bb[: max(0, n - i0)]
+    delta = 2000 + R_PLANTED * 19000
+    wide[i0: i0 + len(bb)] += (bb * np.exp(
+        2j * np.pi * delta * t[i0: i0 + len(bb)])).astype(np.complex64)
     return wide
+
+
+def run_station_main(argv, box, heard, su):
+    """Run station_main.main in-process on the card with the station
+    instrumented: ``box`` gets the station and the R/T framers' launch
+    counter, ``heard`` every (topic, ACARS text), ``su`` [ok, bad] SU
+    counts of the given P topics.  Returns (jsondump records on stdout,
+    kernel launches over the run)."""
+    def on_station(st):
+        box["st"] = st
+        box["rt"] = count_rt_launches(st)
+        emit = st.on_acars
+
+        def on_acars(topic, item):
+            heard.append((topic, item.message))
+            emit(topic, item)
+        st.on_acars = on_acars
+        for topic in su:
+            framer = st.framers[topic]
+            finish = framer._finish_frame
+
+            def counting(pre, info, su_ok, _finish=finish, _t=topic):
+                ev = _finish(pre, info, su_ok)
+                su[_t][0] += sum(bool(x) for x in ev.su_crc_ok)
+                su[_t][1] += sum(not x for x in ev.su_crc_ok)
+                return ev
+            framer._finish_frame = counting
+
+    out = io.StringIO()
+    vk.reset_launches()
+    with contextlib.redirect_stdout(out):
+        rc = station_main.main(argv, on_station=on_station)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"station_main returned {rc}")
+    records = [json.loads(line) for line in out.getvalue().splitlines()
+               if line.startswith("{")]
+    return records, vk.LAUNCHES
+
+
+def count_rt_launches(st) -> list:
+    """Wrap each R/T framer's checkpoint decoder so that the kernel
+    launches it makes are counted apart from the P bank's; returns the
+    one-element counter."""
+    box = [0]
+    for fr in st.rt_framers.values():
+        def counted(soft, _dec=fr.decoder):
+            before = vk.LAUNCHES
+            bits = _dec(soft)
+            box[0] += vk.LAUNCHES - before
+            return bits
+        fr.decoder = counted
+    return box
 
 
 def _state_tensors(tree):
@@ -211,46 +319,16 @@ def phase_main_path(card: str, workdir: str) -> dict:
     del wide
     log(f"wideband: {N_BLOCKS} blocks x {block_len} samples "
         f"({N_BLOCKS * block_len / FS:.2f} s at {FS} S/s), made in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s (host; {card})")
 
-    box = {}
-    heard = []
+    box, heard = {}, []
     su = {f"V{v}": [0, 0] for v in CONTENT}
-
-    def on_station(st):
-        box["st"] = st
-        emit = st.on_acars
-
-        def on_acars(topic, item):
-            heard.append((topic, item.message))
-            emit(topic, item)
-        st.on_acars = on_acars
-        for topic in su:
-            framer = st.framers[topic]
-            finish = framer._finish_frame
-
-            def counting(pre, info, su_ok, _finish=finish, _t=topic):
-                ev = _finish(pre, info, su_ok)
-                su[_t][0] += sum(bool(x) for x in ev.su_crc_ok)
-                su[_t][1] += sum(not x for x in ev.su_crc_ok)
-                return ev
-            framer._finish_frame = counting
-
     argv = ["-c", ini, "--iq-file", iq, "--backend", "fused",
             "--batch-framing", "--device", "cuda", "--ingest-dtype", "int4",
             "--format", "jsondump", "-s", "CHIP-SMOKE",
             "--stats-every", "1e9"]
-    out = io.StringIO()
-    vk.reset_launches()
-    with contextlib.redirect_stdout(out):
-        rc = station_main.main(argv, on_station=on_station)
-    torch.cuda.synchronize()
-    launches = vk.LAUNCHES
-    if rc != 0:
-        raise AssertionError(f"station_main returned {rc}")
+    records, launches = run_station_main(argv, box, heard, su)
     st = box["st"]
-    records = [json.loads(line) for line in out.getvalue().splitlines()
-               if line.startswith("{")]
     log(f"main path: {len(records)} jsondump records on stdout, "
         f"{len(heard)} ACARS, frames {st.stats.frames}, "
         f"su_ok {st.stats.su_ok}, su_bad {st.stats.su_bad}")
@@ -264,30 +342,37 @@ def phase_main_path(card: str, workdir: str) -> dict:
         log(f"V{v}: su_ok {ok} su_bad {bad}")
         if bad != 0 or ok == 0:
             raise AssertionError(f"V{v}: su_ok {ok}, su_bad {bad}")
-    if launches <= 0:
-        raise AssertionError("the main path never launched the kernel")
+    r_topic = f"R{R_PLANTED}"
+    r_events = [e for e in st.rt_framers[r_topic].events if e.kind == "R"]
+    log(f"{r_topic}: {len(r_events)} R packets, burst windows "
+        f"{st.stats.burst_windows}, packets {st.stats.burst_packets}")
+    if not any(e.infofield[:17] == R_INFO for e in r_events):
+        raise AssertionError(f"the planted R packet is missing on {r_topic}")
+    rt = box["rt"][0]
+    if launches <= 0 or rt <= 0:
+        raise AssertionError(f"kernel launches {launches} (R/T {rt}): the "
+                             "path did not run the kernel")
     devs = {t.device.type for t in _state_tensors(st._state)}
     if devs != {"cuda"}:
         raise AssertionError(f"station state on {devs}, expected cuda")
     n = st.stats.wideband_samples // st.block_len
     rtf = st.stats.realtime_factor / FS
     per_block = 1e3 * st.stats.wall_seconds / max(n, 1)
-    log(f"main path: {n} blocks, kernel launches {launches}, "
-        f"realtime factor {rtf:.2f}x, {per_block:.1f} ms per block "
-        f"(host wall clock incl. first-block warm-up; {card})")
+    log(f"main path: {n} blocks, kernel launches {launches} (P bank "
+        f"{launches - rt}, R/T framers {rt}), realtime factor {rtf:.2f}x, "
+        f"{per_block:.1f} ms per block (host wall clock incl. first-block "
+        f"warm-up; {card})")
     os.remove(iq)
     return {"station": st, "launches": launches, "ini": ini}
 
 
 # ---- phase 4 ---------------------------------------------------------------
 
-def phase_step_vs_cpu(st) -> None:
+def phase_step_vs_cpu(st, wide, label: str) -> None:
     """One block through the card's station step and the host CPU's, from
-    the same state: the packed buffers must agree (tolerances of
-    tests/test_torch_station_step.py)."""
-    cfg = st.cfg
-    cpu = FusedStation(cfg, ingest_dtype=st.ingest_dtype, device="cpu")
-    wide = make_wideband(st.block_len, 1, seed=7)
+    the same state: the packed buffers must agree within the limits of
+    tests/test_torch_cuda.py:check_packed."""
+    cpu = FusedStation(st.cfg, ingest_dtype=st.ingest_dtype, device="cpu")
     arr = st.quantize(wide)
     state_np = convert.fused_state_to_numpy(st._state)
     _, gp = st._step(convert.fused_state_from_numpy(state_np, "cuda"),
@@ -295,29 +380,169 @@ def phase_step_vs_cpu(st) -> None:
                      torch.tensor(np.float32(1.0), device="cuda"))
     _, cp = cpu._step(convert.fused_state_from_numpy(state_np, "cpu"),
                       torch.from_numpy(arr), torch.tensor(np.float32(1.0)))
-    gp, cp = gp.cpu().numpy(), cp.numpy()
-    d = np.abs(gp[: st._soft_total].astype(np.int32)
-               - cp[: st._soft_total].astype(np.int32))
-    frac = float((d <= 1).mean())
-    # one rate group: the telemetry is [TEL_SLOTS, 50]
-    tg = gp[st._soft_total:].view(np.float32).reshape(TEL_SLOTS, -1)
-    tc = cp[st._soft_total:].view(np.float32).reshape(TEL_SLOTS, -1)
-    mse_rel = np.abs(tg[1] - tc[1]) / np.maximum(np.abs(tc[1]), 1e-30)
-    log(f"step on card vs CPU: soft bytes within +-1 on {frac:.6f}, "
-        f"lock flags equal {bool((tg[0] == tc[0]).all())}, "
-        f"max rel mse diff {float(mse_rel.max()):.3g}, "
-        f"max |Eb/N0| diff {float(np.abs(tg[2] - tc[2]).max()):.3g} dB, "
-        f"max |freq| diff {float(np.abs(tg[3] - tc[3]).max()):.3g} Hz, "
-        f"slips equal {bool((tg[4] == tc[4]).all())}")
-    if not np.isfinite(tg).all():
-        raise AssertionError("non-finite telemetry on the card")
-    if frac < 0.999:
-        raise AssertionError(f"soft bytes agree on only {frac:.6f}")
-    np.testing.assert_array_equal(tg[0], tc[0])              # lock flags
-    np.testing.assert_allclose(tg[1], tc[1], rtol=1e-4)      # mse
-    np.testing.assert_allclose(tg[2], tc[2], atol=1e-3)      # Eb/N0 dB
-    np.testing.assert_allclose(tg[3], tc[3], atol=2e-3)      # freq Hz
-    np.testing.assert_array_equal(tg[4], tc[4])              # slips
+    worst = check_packed(st, gp.cpu().numpy(), cp.numpy())
+    log(f"{label} step on card vs CPU: soft bytes within +-1 on "
+        f"{worst['soft_le1']:.6f} and equal on {worst['soft_eq']:.6f} (worst "
+        f"group), lock flags and slips equal, max rel mse diff "
+        f"{worst['mse_rel']:.3g}, max |Eb/N0| diff {worst['ebno_db']:.3g} dB, "
+        f"max |freq| diff {worst['freq_hz']:.3g} Hz, burst audio within "
+        f"{worst['audio_lsb']} LSB")
+
+
+# ---- phase 5 ---------------------------------------------------------------
+
+def cband_content():
+    """The C-band bank's layout and what is planted on it."""
+    layout = cband_layout(32, 8, 4, 34000)
+    p_topics = content_vfos(FS, layout, "P", 2)
+    rng = np.random.default_rng(11)
+    cframes = [([append_crc16_bytes(bytes([0x30]) + bytes(
+        rng.integers(0, 256, 9).tolist())) for _ in range(3)],
+        bytes(rng.integers(0, 256, 300).tolist())) for _ in range(2)]
+    content = {p_topics[0]: ("P", CB_P_TEXTS[0]),
+               p_topics[1]: ("P", CB_P_TEXTS[1]),
+               content_vfos(FS, layout, "C", 1)[0]: ("C", cframes),
+               content_vfos(FS, layout, "T", 1)[0]: ("T", CB_T_TEXT, 2.0)}
+    return layout, content
+
+
+def phase_cband(card: str, workdir: str) -> dict:
+    """Drive station_main on the card over the C-band bank's file."""
+    layout, content = cband_content()
+    ini = os.path.join(workdir, "cband.ini")
+    with open(ini, "w") as f:
+        f.write(cband_ini(FS, layout))
+    block_len = 16000 * (FS // 48000)         # 16000 samples per channel
+    t0 = time.perf_counter()
+    wide = cband_wideband(FS, layout, content, CB_BLOCKS * block_len, seed=5)
+    iq = os.path.join(workdir, "cband.cf32")
+    wide.tofile(iq)
+    del wide
+    log(f"C-band wideband: {CB_BLOCKS} blocks x {block_len} samples "
+        f"({CB_BLOCKS * block_len / FS:.2f} s at {FS} S/s, {len(layout)} "
+        f"VFOs), made in {time.perf_counter() - t0:.1f} s (host; {card})")
+    voice = os.path.join(workdir, "voice.bin")
+    p_topics = [t for t, c in content.items() if c[0] == "P"]
+    box, heard = {}, []
+    su = {t: [0, 0] for t in p_topics}
+    argv = ["-c", ini, "--iq-file", iq, "--backend", "fused",
+            "--batch-framing", "--device", "cuda", "--ingest-dtype", "int4",
+            "--voice-out", voice, "--format", "jsondump", "-s", "CHIP-SMOKE",
+            "--stats-every", "1e9"]
+    records, launches = run_station_main(argv, box, heard, su)
+    st = box["st"]
+    rt = box["rt"][0]
+    log(f"C-band path: {len(records)} jsondump records, {len(heard)} ACARS, "
+        f"frames {st.stats.frames}, su_ok {st.stats.su_ok}, su_bad "
+        f"{st.stats.su_bad}, voice frames {st.stats.voice_frames}, burst "
+        f"windows {st.stats.burst_windows}, packets {st.stats.burst_packets}")
+    for topic, spec in content.items():
+        if spec[0] == "P":
+            for text in spec[1]:
+                if (topic, text) not in heard:
+                    raise AssertionError(f"message {text!r} missing on "
+                                         f"{topic}")
+            ok, bad = su[topic]
+            log(f"{topic}: su_ok {ok} su_bad {bad}")
+            if bad != 0 or ok == 0:
+                raise AssertionError(f"{topic}: su_ok {ok}, su_bad {bad}")
+        elif spec[0] == "T" and (topic, spec[1]) not in heard:
+            raise AssertionError(f"T burst message missing on {topic}")
+        elif spec[0] == "C":
+            with open(voice, "rb") as f:
+                got = f.read()
+            frames = [got[i:i + 300] for i in range(0, len(got), 300)]
+            planted = [v for _, v in spec[1]]
+            log(f"{topic}: voice file {len(got)} bytes, "
+                f"{len(frames)} frames")
+            if len(got) % 300 or [v for v in frames
+                                  if v in planted] != planted:
+                raise AssertionError("the voice file does not hold the "
+                                     "planted frames in order")
+    if launches - rt <= 0 or rt <= 0:
+        raise AssertionError(f"kernel launches: P bank {launches - rt}, "
+                             f"R/T framers {rt}; both must be > 0")
+    devs = {t.device.type for t in _state_tensors(st._state)}
+    if devs != {"cuda"}:
+        raise AssertionError(f"station state on {devs}, expected cuda")
+    n = st.stats.wideband_samples // st.block_len
+    rtf = st.stats.realtime_factor / FS
+    per_block = 1e3 * st.stats.wall_seconds / max(n, 1)
+    log(f"C-band path: {n} blocks, kernel launches {launches} (P bank "
+        f"{launches - rt}, R/T framers {rt}), realtime factor {rtf:.2f}x, "
+        f"{per_block:.1f} ms per block (host wall clock incl. first-block "
+        f"warm-up; {card})")
+    os.remove(iq)
+    return {"station": st, "launches": launches, "rt": rt,
+            "layout": layout, "content": content}
+
+
+def stage_times(st, wide, card: str, label: str) -> None:
+    """Where a warm station's block goes, on the blocks of ``wide``.
+
+    Serially per block, on the host clock: quantize, device step (upload
+    and one step, up to a synchronize) and drain (the packed buffer's copy
+    back, host framing, burst windows and decodes).  Then ``_step`` alone
+    on the last block: host enqueue and CUDA-event device time per step
+    over 10 steps, and under torch.profiler over 3 steps the device
+    operations per step, their summed device time and the device's idle
+    share of the step.  The station's sinks are silenced first (the run
+    that fed them is over)."""
+    st.flush()
+    st.on_acars = lambda *a: None
+    st.on_voice = lambda *a: None
+    L = st.block_len
+    times = {"quantize": [], "device step": [], "drain": []}
+    for b in range(len(wide) // L):
+        t0 = time.perf_counter()
+        q = st.quantize(wide[b * L:(b + 1) * L])
+        t1 = time.perf_counter()
+        st._pending.append(q if isinstance(q, tuple) else (q, np.float32(1)))
+        st._dispatch()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        st._drain(st._inflight.popleft())
+        t3 = time.perf_counter()
+        for name, dt in zip(times, (t1 - t0, t2 - t1, t3 - t2)):
+            times[name].append(1e3 * dt)
+    log(f"{label} block of {L} samples, median of {len(wide) // L} warm "
+        "blocks, serial: " + ", ".join(
+            f"{k} {float(np.median(v)):.3f} ms" for k, v in times.items())
+        + f" ({card})")
+    iq = torch.from_numpy(q[0] if isinstance(q, tuple) else q).cuda()
+    scale = torch.tensor(np.float32(1.0), device="cuda")
+    state = st._state
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    n = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev0.record()
+    for _ in range(n):
+        st._step(state, iq, scale)
+    ev1.record()
+    enqueue_ms = 1e3 * (time.perf_counter() - t0) / n
+    torch.cuda.synchronize()
+    step_ms = ev0.elapsed_time(ev1) / n
+    from torch.profiler import ProfilerActivity, profile
+    n = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            st._step(state, iq, scale)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / n
+    log(f"{label} step alone: host enqueue {enqueue_ms:.3f} ms, device "
+        f"(CUDA events) {step_ms:.3f} ms per step; profiler: "
+        f"{len(dev) / n:.1f} device operations, {busy_ms:.3f} ms of device "
+        f"time per step, device idle {100 * (1 - busy_ms / step_ms):.1f}% "
+        f"({card})")
+    top = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+    log(f"{label} step, largest device times per step: " + ", ".join(
+        f"{e.key} {e.self_device_time_total / 1e3 / n:.3f} ms"
+        for e in top[:6]))
 
 
 def main() -> int:
@@ -327,17 +552,36 @@ def main() -> int:
     os.makedirs(workdir, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=workdir)
     try:
-        main_path = phase_main_path(card, tmp)
-        phase_step_vs_cpu(main_path["station"])
+        t0 = time.perf_counter()
+        lband = phase_main_path(card, tmp)
+        st = lband["station"]
+        phase_step_vs_cpu(st, make_wideband(st.block_len, 1, seed=7),
+                          "L-band")
+        log(f"phases 3-4: {time.perf_counter() - t0:.1f} s ({card})")
+        t0 = time.perf_counter()
+        cband = phase_cband(card, tmp)
+        st = cband["station"]
+        stage_times(st, cband_wideband(FS, cband["layout"], cband["content"],
+                                       6 * st.block_len, seed=8),
+                    card, "C-band")
+        phase_step_vs_cpu(st, cband_wideband(
+            FS, cband["layout"], cband["content"], st.block_len, seed=7),
+            "C-band")
+        log(f"phases 5-6: {time.perf_counter() - t0:.1f} s ({card})")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    launches = lband["launches"] + cband["launches"]
+    log(f"kernel launches on the main paths: {launches} (L-band "
+        f"{lband['launches']}, C-band P bank "
+        f"{cband['launches'] - cband['rt']}, C-band R/T framers "
+        f"{cband['rt']})")
     ms, plain_ms = kern["timing"][(64, 631)]
     print(json.dumps({"kernels": [{
         "name": "viterbi_decode_soft_cuda",
         "route": "cuda",
         "source": "aero_tpu_torch/csrc/viterbi.cu",
         "replaces": "aero_tpu/ops/pallas/viterbi_kernel.py:105",
-        "launches": main_path["launches"],
+        "launches": launches,
         "max_abs_err": kern["max_abs_err"],
         "ms": ms,
         "plain_ms": plain_ms,

@@ -7,11 +7,18 @@ CUDA device is present.  On the card, from the repository root (the
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 - the kernel is bit-exact against its plain-torch twin (integral, float
-  and all-tie soft inputs; the frame shapes of 1200 and 10500 bps and a
-  few ragged ones), counts one launch per call, and rejects what it does
-  not take;
+  and all-tie soft inputs; the frame shapes of 1200 and 10500 bps, the
+  R/T checkpoint shapes, and a few ragged ones), counts one launch per
+  call, and rejects what it does not take;
 - the fused station with batch framing decodes the same ACARS on the card
-  as on the CPU, through the kernel.
+  as on the CPU, through the kernel;
+- one step of a small C-band station (OQPSK 10500 P, 8400 C and a burst
+  10500 T watcher) on the card against the same step on the CPU, from the
+  same state, within the limits of ``check_packed``.
+
+``check_packed`` and the C-band bank builders below are shared with
+tests/test_torch_mixed.py and chip_smoke.py (this file imports no JAX, so
+both can import it).
 """
 
 import numpy as np
@@ -21,9 +28,162 @@ import torch
 from aero_tpu_torch.device import set_fp32_precision
 from aero_tpu_torch.ops import viterbi_kernel as vk
 from aero_tpu_torch.protocol.viterbi import viterbi_decode_soft
+from aero_tpu_torch.runtime.fused_station import TEL_SLOTS
 from torch_soft import soft_bytes
 
 torch.set_num_threads(2)
+
+
+def check_packed(st, a, b):
+    """Two packed step buffers of station ``st`` (uint8 numpy) agree:
+
+    - continuous groups: soft bytes within +-1 on >= 99.9% and equal on
+      >= 99% of the bytes; lock flags and slips exact; mse 1e-4 relative;
+      freq 2e-3 Hz; Eb/N0 1e-3 dB or 1e-4 relative (its argument cancels
+      at high SNR);
+    - burst groups: the int16 audio within one LSB, its RMS and peak to
+      1e-4 relative.
+
+    Raises AssertionError; returns the worst figures seen, for a log."""
+    worst = {"soft_le1": 1.0, "soft_eq": 1.0, "audio_lsb": 0,
+             "mse_rel": 0.0, "ebno_db": 0.0, "freq_hz": 0.0}
+    tel_a = a[st._soft_total:].view(np.float32)
+    tel_b = b[st._soft_total:].view(np.float32)
+    assert np.isfinite(tel_a).all() and np.isfinite(tel_b).all()
+    for key in st._order:
+        nb = len(st.groups[key])
+        pos, per = st._soft_ofs[key]
+        ba, bb = a[pos: pos + nb * per], b[pos: pos + nb * per]
+        o = st._tel_ofs[key]
+        ta = tel_a[o: o + TEL_SLOTS * nb].reshape(TEL_SLOTS, nb)
+        tb = tel_b[o: o + TEL_SLOTS * nb].reshape(TEL_SLOTS, nb)
+        if key[2]:
+            d = np.abs(ba.view(np.int16).astype(np.int32)
+                       - bb.view(np.int16).astype(np.int32))
+            worst["audio_lsb"] = max(worst["audio_lsb"], int(d.max()))
+            assert d.max() <= 1, (key, int(d.max()))
+            np.testing.assert_allclose(ta[:2], tb[:2], rtol=1e-4, atol=1e-9)
+            continue
+        d = np.abs(ba.astype(np.int32) - bb.astype(np.int32))
+        worst["soft_le1"] = min(worst["soft_le1"], float((d <= 1).mean()))
+        worst["soft_eq"] = min(worst["soft_eq"], float((d == 0).mean()))
+        worst["mse_rel"] = max(worst["mse_rel"], float(
+            (np.abs(ta[1] - tb[1]) / np.maximum(np.abs(tb[1]), 1e-30)).max()))
+        worst["ebno_db"] = max(worst["ebno_db"],
+                               float(np.abs(ta[2] - tb[2]).max()))
+        worst["freq_hz"] = max(worst["freq_hz"],
+                               float(np.abs(ta[3] - tb[3]).max()))
+        assert (d <= 1).mean() >= 0.999, (key, float((d > 1).mean()))
+        assert (d == 0).mean() >= 0.99, (key, float((d == 0).mean()))
+        np.testing.assert_array_equal(ta[0], tb[0])              # lock
+        np.testing.assert_allclose(ta[1], tb[1], rtol=1e-4)      # mse
+        np.testing.assert_allclose(ta[2], tb[2], rtol=1e-4,      # Eb/N0
+                                   atol=1e-3)
+        np.testing.assert_allclose(ta[3], tb[3], atol=2e-3)      # freq Hz
+        np.testing.assert_array_equal(ta[4], tb[4])              # slips
+    return worst
+
+
+# ---- a C-band bank: OQPSK 10500 P, 8400 C and burst 10500 T VFOs ----------
+
+CB_CENTER = 3600500000          # a downconverted 3.6 GHz feed, as in
+                                # configs/cband_10500.ini
+
+
+def cband_layout(n_p, n_c, n_t, spacing):
+    """[(topic, offset_hz, data_rate, burst)]: n_p P, n_c C and n_t T VFOs
+    ``spacing`` Hz apart, centred on the tune."""
+    kinds = ([("P", 10500, False)] * n_p + [("C", 8400, False)] * n_c
+             + [("T", 10500, True)] * n_t)
+    n = len(kinds)
+    return [(f"{k}{i:02d}", int(round((i - (n - 1) / 2) * spacing)), rate,
+             burst) for i, (k, rate, burst) in enumerate(kinds)]
+
+
+def cband_ini(fs, layout):
+    vfos = "".join(
+        f"{i + 1}\\frequency={CB_CENTER + off}\n{i + 1}\\data_rate={rate}\n"
+        f"{i + 1}\\topic={topic}\n" + (f"{i + 1}\\burst=1\n" if burst else "")
+        for i, (topic, off, rate, burst) in enumerate(layout))
+    return (f"[General]\nsample_rate={fs}\ncenter_frequency={CB_CENTER}\n"
+            f"[vfos]\nsize={len(layout)}\n{vfos}")
+
+
+def content_vfos(fs, layout, kind, count):
+    """The ``count`` VFOs of ``kind`` nearest their filterbank bin centres
+    (bins every 24 kHz for 48 kS/s channels), so their whole band sits in
+    the channel's passband."""
+    bin_hz = 24000.0
+    cands = [(abs(off - round(off / bin_hz) * bin_hz), topic)
+             for topic, off, _, _ in layout if topic.startswith(kind)]
+    return [t for _, t in sorted(cands)[:count]]
+
+
+def cband_wideband(fs, layout, content, n, seed=0, noise=0.04):
+    """Complex wideband IQ at ``fs`` with ``content`` on some VFOs of the
+    layout, plus complex Gaussian noise on every VFO:
+
+    - ("P", [texts]): one ACARS message per text on a 10500 P channel,
+      then fill frames to the end (the carrier stays up, so no frames are
+      decoded from noise);
+    - ("C", cframes): C-channel frames of (signalling SUs, 300-byte
+      voice), with 3 lead frames;
+    - ("T", text, t0): one OQPSK T burst carrying ``text`` as ACARS,
+      starting ``t0`` seconds in.
+
+    Each audio stream is made at 48 kS/s (carrier at 8 kHz), upsampled to
+    ``fs`` by resample_poly and shifted to its VFO's offset."""
+    from scipy.signal import resample_poly
+    from aero_tpu_torch.models.oqpsk import oqpsk_modulate
+    from aero_tpu_torch.protocol.c_framing import build_c_frames
+    from aero_tpu_torch.protocol.crc import append_crc16_bytes
+    from aero_tpu_torch.protocol.framing import FRAME_SPECS, build_p_frames
+    from aero_tpu_torch.protocol.isu import make_acars_userdata, segment_isu
+    from aero_tpu_torch.protocol.rt_framing import build_t_burst
+
+    rng = np.random.default_rng(seed)
+    wide = (noise * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+            ).astype(np.complex64)
+    up = fs // 48000
+    offsets = {topic: off for topic, off, _, _ in layout}
+    fill = append_crc16_bytes(bytes([0x01] + [0] * 9))
+    per = FRAME_SPECS[10500].payload_info_bits // 96
+    for k, (topic, spec) in enumerate(sorted(content.items())):
+        kind = spec[0]
+        if kind == "P":
+            sus = []
+            for text in spec[1]:
+                ud = make_acars_userdata("2", f"N{k}{topic}", "!", "H1", "A",
+                                         text)
+                sus += [append_crc16_bytes(b)
+                        for b in segment_isu(ud, 0x500000 + k, 0x41)]
+            while len(sus) % per:
+                sus.append(fill)
+            fields = [b"".join(sus[i:i + per])
+                      for i in range(0, len(sus), per)]
+            frame_bits = (len(build_p_frames([fill * per] * 2, 10500, 0))
+                          - len(build_p_frames([fill * per], 10500, 0)))
+            fields += [fill * per] * int(n / fs * 10500 / frame_bits + 2)
+            audio = oqpsk_modulate(build_p_frames(fields, 10500, 2), 48000,
+                                   10500.0, amplitude=0.2)
+        elif kind == "C":
+            audio = oqpsk_modulate(build_c_frames(spec[1], lead_frames=3),
+                                   48000, 8400.0, amplitude=0.2)
+        else:
+            ud = make_acars_userdata("2", f"N{k}{topic}", "!", "H1", "A",
+                                     spec[1])
+            bits = build_t_burst(0x500000 + k, 0x41,
+                                 segment_isu(ud, 0x500000 + k, 0x41),
+                                 oqpsk=True, preamble_bits=128)
+            audio = np.concatenate([
+                np.zeros(int(spec[2] * 48000), np.float32),
+                oqpsk_modulate(bits, 48000, 10500.0, freq=8000.0,
+                               amplitude=0.2)])
+        bb = resample_poly(audio[: n // up + 1].astype(np.float64), up, 1)[:n]
+        t = np.arange(len(bb)) / fs
+        wide[: len(bb)] += (bb * np.exp(2j * np.pi * offsets[topic] * t)
+                            ).astype(np.complex64)
+    return wide
 
 
 @pytest.fixture
@@ -80,3 +240,58 @@ def test_station_on_card_matches_cpu(cuda):
     assert ("X", "BATCH XX") in results["cuda"][0]
     assert results["cuda"][:4] == results["cpu"][:4]
     assert results["cuda"][4] and not results["cpu"][4]
+
+
+@pytest.mark.parametrize("rows", [5, 11, 50, 95])
+def test_kernel_bit_exact_at_rt_shapes(cuda, rows):
+    """The R/T framer's checkpoint decodes: one stream (B=1) of rows*64
+    soft bits (R: 5 rows, MSK T: 11 and 50, the most: 95), through the
+    framer's decoder on the card."""
+    T = rows * 32
+    dec = vk.stream_decoder(cuda)
+    for kind in ("integral", "float", "all128"):
+        soft = soft_bytes(kind, 1, T, seed=rows)
+        before = vk.LAUNCHES
+        got = dec(soft[0])
+        assert vk.LAUNCHES == before + 1
+        assert got.dtype == np.uint8 and got.shape == (T,)
+        want = viterbi_decode_soft(torch.from_numpy(soft))[0].numpy()
+        np.testing.assert_array_equal(got, want, err_msg=kind)
+
+
+def test_cband_step_on_card_matches_cpu(cuda):
+    from aero_tpu_torch import convert
+    from aero_tpu_torch.channelizer import load_ini
+    from aero_tpu_torch.protocol.crc import append_crc16_bytes
+    from aero_tpu_torch.runtime.fused_station import FusedStation
+
+    fs = 288000
+    layout = cband_layout(2, 2, 1, 48000)
+    rng = np.random.default_rng(3)
+    cframes = [([append_crc16_bytes(bytes([0x30]) + bytes(
+        rng.integers(0, 256, 9).tolist())) for _ in range(3)],
+        bytes(rng.integers(0, 256, 300).tolist())) for _ in range(2)]
+    content = {content_vfos(fs, layout, "P", 1)[0]: ("P", ["CARD STEP"]),
+               content_vfos(fs, layout, "C", 1)[0]: ("C", cframes),
+               content_vfos(fs, layout, "T", 1)[0]: ("T", "CARD BURST", 0.5)}
+    cfg = load_ini(cband_ini(fs, layout), is_text=True)
+    card = FusedStation(cfg, ingest_dtype="int4", device=cuda)
+    cpu = FusedStation(cfg, ingest_dtype="int4", device="cpu")
+    L = card.block_len
+    wide = cband_wideband(fs, layout, content, 5 * L, seed=1)
+    for b in range(4):
+        card.process(wide[b * L:(b + 1) * L])
+    card.flush()
+    arr = card.quantize(wide[4 * L:])
+    state_np = convert.fused_state_to_numpy(card._state)
+    one = np.float32(1.0)
+    _, gp = card._step(convert.fused_state_from_numpy(state_np, cuda),
+                       torch.from_numpy(arr).to(cuda),
+                       torch.tensor(one, device=cuda))
+    _, cp = cpu._step(convert.fused_state_from_numpy(state_np, "cpu"),
+                      torch.from_numpy(arr), torch.tensor(one))
+    check_packed(card, gp.cpu().numpy(), cp.numpy())
+    tel = cp.numpy()[card._soft_total:].view(np.float32)
+    key = (48000, 10500, False)
+    o, nb = card._tel_ofs[key], len(card.groups[key])
+    assert tel[o: o + nb].sum() > 0, "no P VFO was locked at the step"

@@ -6,11 +6,12 @@
    ``aero_tpu.native`` and ``aero_tpu.utils.signals``, and never ``jax``.
 3. Drift guard: each verbatim copy equals its ``aero_tpu`` original after
    the ``aero_tpu.`` -> ``aero_tpu_torch.`` import rewrite, and the copied
-   functions and methods (station accounting, the fused station's
-   ``quantize`` / ``_drain`` / ``vfo_telemetry``, the batched framer
-   bank's ``flush``) parse to the same syntax tree as the originals, up to
-   the listed tensor substitutions.  A later fix to ``aero_tpu`` fails
-   here until the port takes it too.
+   functions, methods and modules (station accounting, the fused
+   station's ``quantize`` / ``_drain`` / ``vfo_telemetry`` /
+   ``vfo_spectrum``, the batched framer bank's ``feed`` / ``flush``, the
+   burst wrapper's ``process``, the R/T framer module) parse to the same
+   syntax tree as the originals, up to the listed substitutions.  A later
+   fix to ``aero_tpu`` fails here until the port takes it too.
 """
 
 import ast
@@ -29,8 +30,9 @@ PORT = os.path.join(ROOT, "aero_tpu_torch")
 VERBATIM = ["protocol/crc.py", "protocol/scrambler.py",
             "protocol/interleaver.py", "protocol/framing.py",
             "protocol/isu.py", "protocol/acars.py", "protocol/su_dispatch.py",
-            "protocol/database.py", "channelizer/config.py", "ops/design.py",
-            "io/output.py", "io/forwarder.py"]
+            "protocol/database.py", "protocol/c_framing.py",
+            "channelizer/config.py", "ops/design.py", "io/output.py",
+            "io/forwarder.py"]
 
 ALLOWED_FROM_JAX_PACKAGE = {"aero_tpu", "aero_tpu.native",
                             "aero_tpu.utils.signals"}
@@ -104,10 +106,10 @@ def test_verbatim_copies_match(rel):
 
 
 def _tree(obj, subs=()):
-    src = textwrap.dedent(inspect.getsource(obj))
-    src = _rewrite_imports(src)
+    src = obj if isinstance(obj, str) else inspect.getsource(obj)
+    src = _rewrite_imports(textwrap.dedent(src))
     for a, b in subs:
-        assert a in src, (obj, a)
+        assert src.count(a) == 1, (obj, a)
         src = src.replace(a, b)
     return ast.dump(ast.parse(src))
 
@@ -120,11 +122,49 @@ _FLUSH_SUBS = (
 )
 
 
+# the R/T framer takes its checkpoint decoder as an argument: the import,
+# the constructor argument and its default, and the call at the decode
+_RT_SUBS = (
+    ("from aero_tpu_torch.protocol.viterbi import viterbi_decode_soft\n",
+     "from aero_tpu_torch.ops.viterbi_kernel import stream_decoder\n"),
+    ("                 db=None):\n", "                 db=None, decoder=None):\n"),
+    ("        self.oqpsk = oqpsk\n",
+     "        self.oqpsk = oqpsk\n"
+     "        self.decoder = decoder or stream_decoder(\"cpu\")\n"),
+    ("viterbi_decode_soft(block[idx])", "self.decoder(block[idx])"),
+)
+
+# the burst wrapper's host logic: where arrays cross to the device
+_PROCESS_SUBS = (
+    ("np.asarray(_envelope(padded,", "_host(_envelope(self._put(padded),"),
+    ("np.asarray(_autocorr_rho(padded,",
+     "_host(_autocorr_rho(self._put(padded),"),
+    ("self._window_fn(win, gwin.astype(np.float32),",
+     "self._window_fn(self._put(win), self._put(gwin.astype(np.float32)),"),
+    ('np.asarray(out["soft"])', '_host(out["soft"])'),
+    ('np.asarray(out["active"])', '_host(out["active"])'),
+)
+
+# the port's station state holds tensors, not packed complex planes
+_SPECTRUM_SUBS = (
+    ("    from aero_tpu_torch.ops.compat import tree_unpack\n", ""),
+    ('st = tree_unpack(self._state["grp"][key]["demod"])',
+     'st = self._state["grp"][key]["demod"]'),
+    ("np.asarray(st.coarse_y[row])", "st.coarse_y[row].cpu().numpy()"),
+)
+
+
+def _source(mod):
+    return open(mod.__file__).read()
+
+
 def _pairs():
     from aero_tpu.runtime import station as js, fused_station as jf
-    from aero_tpu.protocol import batch_framing as jb
+    from aero_tpu.protocol import batch_framing as jb, rt_framing as jr
+    from aero_tpu.models import burst_common as jc
     from aero_tpu_torch.runtime import station as ts, fused_station as tf
-    from aero_tpu_torch.protocol import batch_framing as tb
+    from aero_tpu_torch.protocol import batch_framing as tb, rt_framing as tr
+    from aero_tpu_torch.models import burst_common as tc
     return {
         "StationStats": (js.StationStats, ts.StationStats, ()),
         "new_burst_stats": (js.new_burst_stats, ts.new_burst_stats, ()),
@@ -141,6 +181,11 @@ def _pairs():
                       tb.BatchPChannelFramerBank.feed, ()),
         "bank.flush": (jb.BatchPChannelFramerBank.flush,
                        tb.BatchPChannelFramerBank.flush, _FLUSH_SUBS),
+        "vfo_spectrum": (jf.FusedStation.vfo_spectrum,
+                         tf.FusedStation.vfo_spectrum, _SPECTRUM_SUBS),
+        "burst.process": (jc.BurstWindowDemodulator.process,
+                          tc.BurstWindowDemodulator.process, _PROCESS_SUBS),
+        "rt_framing": (_source(jr), _source(tr), _RT_SUBS),
     }
 
 
@@ -148,7 +193,8 @@ def _pairs():
                                   "account_burst_outputs",
                                   "account_framer_events", "quantize",
                                   "_drain", "vfo_telemetry", "bank.feed",
-                                  "bank.flush"])
+                                  "bank.flush", "vfo_spectrum",
+                                  "burst.process", "rt_framing"])
 def test_copied_code_matches_original(name):
     orig, port, subs = _pairs()[name]
     assert _tree(port) == _tree(orig, subs), (

@@ -3,11 +3,14 @@
 Inputs are made once from a numpy seed and fed to both.  Tolerance:
 rtol = atol = 1e-5 — float32 ops whose only difference is the summation
 order and the exp/sin/cos implementations (a few ulp on unit-scale
-values)."""
+values).  The JAX side runs under ``jax.jit``, as the demodulators run
+it: compiled, XLA rounds ``phase + f * n`` once (a fused multiply-add),
+which the port's ramp reproduces; eager JAX rounds twice."""
 
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 from aero_tpu.ops import nco as jnco, fir as jfir, stats as jstats
@@ -35,10 +38,10 @@ def test_nco_mix(freq, extra, conj):
     x = _c(rng, B, T)
     ex = (np.cumsum(rng.uniform(-1e-3, 1e-3, (B, T)), axis=1)
           .astype(np.float32) if extra else None)
-    jp, jy = jnco.nco_mix(jnp.asarray(phase), jnp.asarray(x),
-                          jnp.asarray(fn), conj=conj,
-                          extra_cycles=None if ex is None else
-                          jnp.asarray(ex))
+    mix = jax.jit(jnco.nco_mix, static_argnames="conj")
+    jp, jy = mix(jnp.asarray(phase), jnp.asarray(x), jnp.asarray(fn),
+                 conj=conj,
+                 extra_cycles=None if ex is None else jnp.asarray(ex))
     tp, ty = tnco.nco_mix(torch.from_numpy(phase), torch.from_numpy(x),
                           torch.from_numpy(fn), conj=conj,
                           extra_cycles=None if ex is None else

@@ -62,11 +62,15 @@ def test_multi_block_dispatch_same_result(wideband):
 
 
 def test_unported_vfo_kinds_raise():
+    """VFO kinds that the JAX station does not serve either raise its
+    ValueError: an unknown continuous rate, and a burst VFO at 8400 (R/T
+    channels are 600/1200 MSK or 10500 OQPSK)."""
     base = ("[General]\nsample_rate=288000\ncenter_frequency=1545000000\n"
             "[vfos]\nsize=1\n1\\frequency=1545024000\n1\\topic=V\n")
-    with pytest.raises(NotImplementedError, match="A5"):
-        FusedStation(load_ini(base + "1\\data_rate=10500\n", is_text=True),
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        FusedStation(load_ini(base + "1\\data_rate=600\n1\\burst=1\n",
-                              is_text=True), device="cpu")
+    for extra, match in (("1\\data_rate=4800\n", "unsupported data_rate"),
+                         ("1\\data_rate=8400\n1\\burst=1\n", "burst VFO")):
+        cfg = load_ini(base + extra, is_text=True)
+        with pytest.raises(ValueError, match=match):
+            JaxStation(cfg)
+        with pytest.raises(ValueError, match=match):
+            FusedStation(cfg, device="cpu")

@@ -3,8 +3,9 @@
 On a cf32 file of the bank of tests/torch_station_bank.py, the port's CLI
 with ``--device cpu`` prints the same jsondump records as JAX's
 ``station_main --platform cpu`` (timestamps aside), with batch framing
-off and on.  ``--device cuda`` without a usable card raises instead of
-falling back to the CPU.
+off and on.  On a one-VFO 8400 C-channel INI carrying two frames,
+``--voice-out`` writes the same bytes as JAX's.  ``--device cuda`` without
+a usable card raises instead of falling back to the CPU.
 """
 
 import json
@@ -67,8 +68,47 @@ def test_cli_cuda_without_card_raises(capture):
         torch_main.main(["-c", ini, "--iq-file", iq, "--device", "cuda"])
 
 
+def test_cli_voice_out_same_bytes_as_jax(tmp_path, capsys):
+    """The C8400 VFO of tests/test_fused_mixed.py alone at 288 kS/s, two
+    C frames of known voice: both CLIs append the same 300-byte frames."""
+    from aero_tpu.models.oqpsk import oqpsk_modulate
+    from aero_tpu.protocol.c_framing import build_c_frames
+    from tests.test_c_channel import _frames
+    from tests.test_fused_mixed import CENTER, FS, _to_wideband
+
+    ini = tmp_path / "c.ini"
+    ini.write_text(f"[General]\nsample_rate={FS}\n"
+                   f"center_frequency={CENTER}\n[vfos]\nsize=1\n"
+                   f"1\\frequency={CENTER + 96000}\n1\\data_rate=8400\n"
+                   "1\\topic=C8400\n")
+    rng = np.random.default_rng(9)
+    frames = _frames(rng, 2)
+    dur = 6 * FS
+    wb = _to_wideband(oqpsk_modulate(build_c_frames(frames, lead_frames=3),
+                                     48000, 8400, freq=8000.0),
+                      48000, 96000, dur // 6)
+    wb = np.concatenate([wb, np.zeros(dur - len(wb), np.complex64)])
+    wb += (rng.normal(0, 0.003, dur)
+           + 1j * rng.normal(0, 0.003, dur)).astype(np.complex64)
+    iq = tmp_path / "c.cf32"
+    wb.tofile(iq)
+    common = ["-c", str(ini), "--iq-file", str(iq), "--stats-every", "1e9"]
+    jv, tv = tmp_path / "jax.voice", tmp_path / "torch.voice"
+    assert jax_main.main(common + ["--platform", "cpu",
+                                   "--voice-out", str(jv)]) == 0
+    assert torch_main.main(common + ["--device", "cpu",
+                                     "--voice-out", str(tv)]) == 0
+    err = capsys.readouterr().err
+    got = tv.read_bytes()
+    assert got == jv.read_bytes()
+    assert len(got) % 300 == 0
+    voices = [got[i:i + 300] for i in range(0, len(got), 300)]
+    assert [f[1] for f in frames] == [v for v in voices
+                                      if v in {f[1] for f in frames}]
+    assert '"voice_frames": %d' % (len(got) // 300) in err
+
+
 @pytest.mark.parametrize("flag", [["--checkpoint", "x.npz"],
-                                  ["--voice-out", "v.bin"],
                                   ["--platform", "cpu"]])
 def test_cli_refuses_unported_flags(capture, flag):
     """Flags of what is not ported are absent, not silently ignored."""
