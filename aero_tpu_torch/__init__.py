@@ -19,12 +19,17 @@ layout and names so each module's counterpart is found at the same path:
                                  R/T framer with an injected decoder, and
                                  verbatim copies of the jax-free framers.
 - ``aero_tpu_torch.runtime``     the fused station and its CLI.
+- ``aero_tpu_torch.native``      the host C++ libraries (ingest quantizers,
+                                 the streaming Viterbi), copies of
+                                 ``aero_tpu/native``'s sources, built
+                                 with g++ into ``build/aero_tpu_torch/``.
+- ``aero_tpu_torch.utils``       the signal notifier of the CLI.
 - ``aero_tpu_torch.convert``     carries JAX state trees into the port and
                                  back (the parity tests' teacher forcing).
 
-The package imports ``torch``, numpy and scipy, never ``jax``.  From
-``aero_tpu`` it imports only ``aero_tpu.native`` and
-``aero_tpu.utils.signals``, both jax-free.
+The package imports ``torch``, numpy and scipy, never ``jax``, and nothing
+of ``aero_tpu``: where it needs a jax-free module of the reference it
+keeps its own copy, held equal by tests/test_torch_imports.py.
 """
 
 __version__ = "0.1.0"

@@ -8,16 +8,22 @@ it on the card); it has a plain C interface, is compiled by ``nvcc`` for
 source changes: the library name carries the source hash) and is loaded
 with ``ctypes``.
 
-``viterbi_decode_soft_cuda(soft [B, 2T] f32) -> bits [B, T] uint8``:
+``viterbi_decode_soft_cuda(soft [B, 2T]) -> bits [B, T] uint8``:
 
-- a CPU tensor goes to the plain-torch twin
+- a CPU tensor (uint8 or float32 soft bytes) goes to the plain-torch twin
   (``protocol/viterbi.py:viterbi_decode_soft``);
-- a CUDA tensor launches the kernel, or raises: there is no fallback.
+- a CUDA tensor must hold uint8 soft bytes (``TypeError`` otherwise) and
+  launches the kernel, or raises: there is no fallback.
 
-Any T is accepted (no padding to a chunk multiple) and B is the grid (no
-slicing into groups of streams).  ``LAUNCHES`` counts kernel launches.
-``stream_decoder(device)`` wraps it for one numpy stream, the R/T
-framer's checkpoint decodes (B=1, T = rows*32).
+B is the grid (one block of one warp per stream).  T is not padded to a
+chunk multiple; on a card it is bounded by the block's shared memory (the
+stream's soft bytes and one 8-byte decision word per step): ``max_t``
+asks the kernel's library for the bound, and a longer stream raises
+``ValueError``.  On the CPU the twin takes any T.
+``LAUNCHES`` counts kernel launches.  ``stream_decoder(device)`` wraps the
+wrapper for one numpy stream, the R/T framer's checkpoint decodes (B=1,
+T = rows*32); ``soft_to_bytes`` is the host check both host callers make
+before a stream goes to the card as bytes.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES = 0          # kernel launches since import (or the last reset)
 _lib = None
+_max_t = {}           # device index -> the largest T the kernel takes
 
 
 def reset_launches() -> None:
@@ -85,14 +92,32 @@ def _load():
         fn = lib.aero_viterbi_decode_soft_cuda
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+                       ctypes.c_void_p, ctypes.c_void_p]
+        lib.aero_viterbi_max_t.restype = ctypes.c_int
+        lib.aero_viterbi_max_t.argtypes = [ctypes.c_int]
         _lib = lib
     return _lib
 
 
+def max_t(device) -> int:
+    """The largest T the kernel takes on the CUDA ``device``: one block
+    holds the stream's soft bytes and decisions in the card's opt-in
+    shared memory (the layout is the kernel's; 23240 on an H100)."""
+    idx = torch.device(device).index
+    if idx is None:
+        idx = torch.cuda.current_device()
+    if idx not in _max_t:
+        t = _load().aero_viterbi_max_t(idx)
+        if t < 0:
+            raise RuntimeError(f"shared-memory query failed: cudaError {-t}")
+        _max_t[idx] = t
+    return _max_t[idx]
+
+
 def viterbi_decode_soft_cuda(soft: torch.Tensor) -> torch.Tensor:
-    """Batched soft Viterbi: soft [B, 2T] float32 bytes -> bits [B, T]
-    uint8.  CPU tensor: plain-torch twin.  CUDA tensor: the kernel."""
+    """Batched soft Viterbi: soft bytes [B, 2T] -> bits [B, T] uint8.
+    CPU tensor (uint8 or float32): plain-torch twin.  CUDA tensor (uint8
+    only): the kernel."""
     global LAUNCHES
     if not isinstance(soft, torch.Tensor):
         raise TypeError(f"expected a torch.Tensor, got {type(soft)!r}")
@@ -100,39 +125,51 @@ def viterbi_decode_soft_cuda(soft: torch.Tensor) -> torch.Tensor:
         return viterbi_decode_soft(soft)
     if soft.device.type != "cuda":
         raise ValueError(f"unsupported device {soft.device}")
-    if soft.dtype != torch.float32:
-        raise TypeError(f"soft must be float32, got {soft.dtype}")
+    if soft.dtype != torch.uint8:
+        raise TypeError(f"soft must be uint8 soft bytes on {soft.device}, "
+                        f"got {soft.dtype}")
     if soft.dim() != 2 or soft.shape[1] % 2:
         raise ValueError(f"soft must be [B, 2T], got {tuple(soft.shape)}")
     if not soft.is_contiguous():
         raise ValueError("soft must be contiguous")
     B, T = soft.shape[0], soft.shape[1] // 2
-    if B >= 2 ** 31 or T >= 2 ** 31:
-        raise ValueError(f"shape {tuple(soft.shape)} too large")
-    fn = _load().aero_viterbi_decode_soft_cuda
-    surv = torch.empty((B, T), dtype=torch.int64, device=soft.device)
+    limit = max_t(soft.device)
+    if B >= 2 ** 31 or T > limit:
+        raise ValueError(f"shape {tuple(soft.shape)} too large: T is at "
+                         f"most {limit} (one block's shared memory)")
     bits = torch.empty((B, T), dtype=torch.uint8, device=soft.device)
     if B == 0 or T == 0:
         return bits
+    fn = _load().aero_viterbi_decode_soft_cuda
     with torch.cuda.device(soft.device):
         stream = torch.cuda.current_stream(soft.device).cuda_stream
-        err = fn(soft.data_ptr(), B, T, surv.data_ptr(), bits.data_ptr(),
-                 stream)
+        err = fn(soft.data_ptr(), B, T, bits.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"viterbi kernel launch failed: cudaError {err}")
     LAUNCHES += 1
     return bits
 
 
+def soft_to_bytes(soft) -> np.ndarray:
+    """Numpy soft values -> uint8, after checking on the host that each is
+    a whole number in 0..255 (ValueError otherwise): the kernel's integer
+    metrics equal the float decoder's only on whole bytes."""
+    soft = np.asarray(soft)
+    if soft.size and not (np.all(soft >= 0) and np.all(soft <= 255)
+                          and np.all(soft == np.round(soft))):
+        raise ValueError("soft values must be whole numbers in 0..255")
+    return np.ascontiguousarray(soft, np.uint8)
+
+
 def stream_decoder(device):
     """A decoder of ONE soft stream, for the R/T framer's checkpoint
-    decodes: numpy soft bytes [2T] -> numpy bits [T] uint8, through
-    ``viterbi_decode_soft_cuda`` on a one-row tensor on ``device`` (the
-    kernel on a card, the plain-torch twin on the CPU)."""
+    decodes: numpy soft bytes [2T] (whole numbers in 0..255) -> numpy bits
+    [T] uint8, through ``viterbi_decode_soft_cuda`` on a one-row uint8
+    tensor on ``device`` (the kernel on a card, the plain-torch twin on
+    the CPU)."""
     dev = torch.device(device)
 
     def decode(soft):
-        row = torch.from_numpy(np.ascontiguousarray(soft, np.float32))
-        return viterbi_decode_soft_cuda(row.reshape(1, -1).to(dev))[0].cpu(
-            ).numpy()
+        row = torch.from_numpy(soft_to_bytes(soft).reshape(1, -1))
+        return viterbi_decode_soft_cuda(row.to(dev))[0].cpu().numpy()
     return decode

@@ -4,9 +4,9 @@ Counterpart of ``aero_tpu/protocol/batch_framing.py``.  BATCHES of aligned
 frames, from many VFOs and/or many frames per VFO, decode in one call:
 
     deinterleave     gather with the static 64xN permutation
-    Viterbi          the CUDA kernel for a CUDA tensor
-                     (ops/viterbi_kernel.py), its plain-torch twin for a
-                     CPU tensor
+    Viterbi          the CUDA kernel for a CUDA tensor of soft bytes
+                     (uint8; ops/viterbi_kernel.py), its plain-torch twin
+                     for a CPU tensor
     descramble       XOR with the broadcast keystream row
     CRC-16           GF(2) affine map as a 0/1 float32 matmul: the CRC of
                      an 80-bit SU body is linear over GF(2), so
@@ -27,7 +27,8 @@ from aero_tpu_torch.protocol.crc import crc16_bits
 from aero_tpu_torch.protocol.scrambler import SCRAMBLE_KEYSTREAM
 from aero_tpu_torch.protocol.interleaver import deinterleave_indices
 from aero_tpu_torch.protocol.framing import FRAME_SPECS
-from aero_tpu_torch.ops.viterbi_kernel import viterbi_decode_soft_cuda
+from aero_tpu_torch.ops.viterbi_kernel import (soft_to_bytes,
+                                               viterbi_decode_soft_cuda)
 
 HISTORY = 62
 LOOKAHEAD = 48
@@ -83,8 +84,10 @@ def batch_decode_p_frames(soft_payloads, prefixes, *, rate: int,
     soft_payloads: [N, payload_soft_bits] soft bytes (after arm-flip
     correction); prefixes: [N, 62] soft bytes of the coded stream
     immediately before each payload (128s when unknown).  Both are tensors
-    on one device: a CUDA tensor decodes with the CUDA kernel, a CPU tensor
-    with its plain-torch twin.  With ``pre_deinterleaved`` the payloads are
+    on one device: a CUDA tensor decodes with the CUDA kernel, and must
+    then be uint8; a CPU tensor decodes with its plain-torch twin in
+    float32 (uint8 payloads keep the buffer in uint8, anything else is
+    taken as float32).  With ``pre_deinterleaved`` the payloads are
     already in coded-stream order.  ``use_pallas`` is accepted for
     signature compatibility with the JAX version and ignored: the device
     of the input picks the decoder.
@@ -93,7 +96,8 @@ def batch_decode_p_frames(soft_payloads, prefixes, *, rate: int,
     """
     del use_pallas
     spec = FRAME_SPECS[rate]
-    soft_payloads = soft_payloads.to(torch.float32)
+    dt = torch.uint8 if soft_payloads.dtype == torch.uint8 else torch.float32
+    soft_payloads = soft_payloads.to(dt)
     dev = soft_payloads.device
     N = soft_payloads.shape[0]
     blocklen = 64 * spec.cols
@@ -106,9 +110,9 @@ def batch_decode_p_frames(soft_payloads, prefixes, *, rate: int,
         deint = payload[:, :, didx].reshape(N, -1)
 
     buf = torch.cat(
-        [prefixes.to(device=dev, dtype=torch.float32), deint,
-         torch.full((N, LOOKAHEAD), 128.0, dtype=torch.float32,
-                    device=dev)], dim=1).contiguous()
+        [prefixes.to(device=dev, dtype=dt), deint,
+         torch.full((N, LOOKAHEAD), 128, dtype=dt, device=dev)],
+        dim=1).contiguous()
     bits_all = viterbi_decode_soft_cuda(buf)
 
     h = HISTORY // 2
@@ -147,8 +151,12 @@ class BatchPChannelFramerBank:
             self.framers[t] = f
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
-            self.device)
+        """Soft values to the bank's device: uint8 bytes for the kernel on
+        a card (whole numbers in 0..255, checked here on the host), float32
+        for the twin on the CPU."""
+        if self.device.type == "cpu":
+            return torch.from_numpy(np.ascontiguousarray(a, np.float32))
+        return torch.from_numpy(soft_to_bytes(a)).to(self.device)
 
     def feed(self, rows: dict) -> dict:
         """rows: {topic: soft float array}.  Queues frames per topic, then

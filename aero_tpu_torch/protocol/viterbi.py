@@ -14,8 +14,9 @@ JAX decoder for any float input.  It is the CPU path and the kernel's
 oracle; on the card the main path runs the kernel.
 
 ``StreamingViterbi`` is the host decoder of the sequential framers: it
-uses the native C++ decoder (``aero_tpu.native``) and falls back to the
-plain-torch decoder on the CPU where no C++ toolchain is present.
+uses the port's native C++ decoder (``aero_tpu_torch.native``) and falls
+back to the plain-torch decoder on the CPU where no C++ toolchain is
+present.
 """
 
 from __future__ import annotations
@@ -143,8 +144,9 @@ class StreamingViterbi:
             [self._carry, soft_chunk,
              np.full(self.LOOKAHEAD, 128, dtype=np.float32)])
         # single-frame host decodes go through the native C++ decoder when
-        # available (aero_tpu/native); batched decodes use the CUDA kernel
-        from aero_tpu import native
+        # available (aero_tpu_torch/native); batched decodes use the CUDA
+        # kernel
+        from aero_tpu_torch import native
         if native.have_native():
             bits = native.viterbi_decode_soft_native(buf)
         else:

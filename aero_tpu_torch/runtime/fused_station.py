@@ -398,7 +398,7 @@ class FusedStation:
         [2, T] for int8/int16/float32, packed [T] uint8 for int4,
         (packed [T/2] uint8, sigma) for int2."""
         if self.ingest_dtype != "float32":
-            from aero_tpu import native
+            from aero_tpu_torch import native
             if native.have_native_ingest():
                 return native.quantize_native(
                     np.ascontiguousarray(iq, np.complex64),

@@ -114,7 +114,7 @@ def main(argv=None, on_station=None) -> int:
     last_stats = time.time()
 
     # SIGINT/SIGTERM stop the pump cleanly; SIGHUP dumps a stats line
-    from aero_tpu.utils.signals import EventNotifier
+    from aero_tpu_torch.utils.signals import EventNotifier
 
     def hup_stats():
         s = st.stats

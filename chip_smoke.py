@@ -8,13 +8,21 @@ Run from the root of a checkout, with no arguments:
 Phases (any failure raises and the script exits non-zero):
 
 1. Environment: the card's name and power limit (nvidia-smi), torch and
-   CUDA versions; CUDA must be available; full-fp32 math is set.
+   CUDA versions; CUDA must be available; full-fp32 math is set; the
+   port's native host libraries (g++ from aero_tpu_torch/native) must
+   build, and their files are logged.
 2. The CUDA Viterbi kernel (built by nvcc for sm_90a from
    aero_tpu_torch/csrc/viterbi.cu) against its plain-torch twin on the
-   card, bit-exact, at the 1200 bps frame shape (B=64, T=631), the 10500
-   shape (B=256, T=2551) and the R/T checkpoint shapes (B=1, T=160, 352,
-   1600: R 5 rows, T 11 rows, MSK T 50 rows), on integral, float and
-   all-tie (128) soft inputs; timed with CUDA events after warm-up.
+   card, bit-exact on uint8 soft bytes, at the 1200 bps frame shape (B=64,
+   T=631), the 10500 shape (B=256, T=2551) and the R/T checkpoint shapes
+   (B=1, T=160, 352, 1600: R 5 rows, T 11 rows, MSK T 50 rows), on
+   integral, uniform random, extreme (0/255) and all-tie (128) inputs,
+   and at (1, 1), (130, 95) and the largest T the wrapper takes.  Each
+   main shape is timed after warm-up two ways (tools/viterbi_time.py):
+   the wrapper called back to back (the kernels line's "ms") and the
+   device time in a CUDA graph ("device_ms"), beside its bound (the
+   larger of its operations at the card's fp32 rate and its bytes at the
+   memory rate), the share of the bound and the time per trellis step.
 3. The L-band path: ``aero_tpu_torch.runtime.station_main.main``
    in-process with ``--backend fused --batch-framing --device cuda
    --ingest-dtype int4`` on the 50-VFO MSK-1200 bank (1.536 MS/s at
@@ -63,7 +71,7 @@ import time
 import numpy as np
 import torch
 
-from aero_tpu_torch import convert
+from aero_tpu_torch import convert, native
 from aero_tpu_torch.device import set_fp32_precision
 from aero_tpu_torch.models.msk import msk_modulate
 from aero_tpu_torch.ops import viterbi_kernel as vk
@@ -76,11 +84,12 @@ from aero_tpu_torch.runtime import station_main
 from aero_tpu_torch.runtime.fused_station import FusedStation
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, os.path.join(ROOT, "tests"))
-# shared with the tests (neither imports JAX)
-from torch_soft import soft_bytes  # noqa: E402
+sys.path[:0] = [os.path.join(ROOT, "tests"), os.path.join(ROOT, "tools")]
+# shared with the tests and the kernel's timing tool (none imports JAX)
+from torch_soft import KERNEL_KINDS, soft_bytes  # noqa: E402
 from test_torch_cuda import (cband_ini, cband_layout,  # noqa: E402
                              cband_wideband, check_packed, content_vfos)
+from viterbi_time import MAIN_SHAPES, call_ms, device_ms  # noqa: E402
 
 FS = 1536000
 CENTER = 1545000000
@@ -127,22 +136,49 @@ def phase_environment() -> str:
     log(f"device 0: {torch.cuda.get_device_name(0)}  "
         f"count {torch.cuda.device_count()}")
     set_fp32_precision()
+    t0 = time.perf_counter()
+    if not (native.have_native() and native.have_native_ingest()):
+        raise AssertionError("the port's native host libraries did not "
+                             "build (g++, aero_tpu_torch/native)")
+    for name, path in sorted(native.library_paths().items()):
+        log(f"native {name}: {os.path.relpath(path, ROOT)} ({card})")
+    log(f"native libraries ready in {time.perf_counter() - t0:.1f} s")
     return card
 
 
 # ---- phase 2 ---------------------------------------------------------------
 
-def _time_ms(fn, n: int) -> float:
-    fn()                                   # warm-up
+# the card's peak rates (NVIDIA H100 SXM data sheet, at 700 W): fp32
+# outside the tensor cores, and device memory
+PEAK_OPS = 67e12
+PEAK_BYTES = 3.35e12
+# operations per trellis step and stream: 6 for the branch metrics, an
+# add, a compare and a select for each of the 64 states' two candidates
+OPS_PER_STEP = 6 + 4 * 64
+
+
+def viterbi_bound_ms(B: int, T: int) -> tuple[float, str]:
+    """The least time the card could take to decode B streams of T steps:
+    the larger of the operations at the fp32 rate and the bytes (2T soft
+    bytes in, T bits out per stream) at the memory rate."""
+    ops_ms = 1e3 * B * T * OPS_PER_STEP / PEAK_OPS
+    bytes_ms = 1e3 * B * 3 * T / PEAK_BYTES
+    return ((ops_ms, "operations") if ops_ms >= bytes_ms
+            else (bytes_ms, "bytes"))
+
+
+def _check_kernel(dev, B: int, T: int, kind: str, seed: int) -> int:
+    soft = torch.from_numpy(soft_bytes(kind, B, T, seed=seed)).to(
+        device=dev, dtype=torch.uint8)
+    got = vk.viterbi_decode_soft_cuda(soft)
     torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(n):
-        fn()
-    b.record()
+    want = viterbi_decode_soft(soft)
     torch.cuda.synchronize()
-    return a.elapsed_time(b) / n
+    err = int((got.int() - want.int()).abs().max())
+    log(f"viterbi B={B} T={T} {kind}: max |kernel - plain| = {err}")
+    if not torch.equal(got, want):
+        raise AssertionError(f"kernel != plain at B={B} T={T} ({kind})")
+    return err
 
 
 def phase_kernel(card: str) -> dict:
@@ -152,30 +188,36 @@ def phase_kernel(card: str) -> dict:
         f"{time.perf_counter() - t0:.1f} s (host; {card})")
     dev = torch.device("cuda")
     max_err = 0
+    for B, T in MAIN_SHAPES + ((1, 1), (130, 95)):
+        for kind in KERNEL_KINDS:
+            max_err = max(max_err, _check_kernel(dev, B, T, kind, B + T))
+    T_max = vk.max_t(dev)
+    log(f"viterbi: the largest T one block's shared memory holds: {T_max}")
+    max_err = max(max_err, _check_kernel(dev, 1, T_max, "extreme", 3))
     timing = {}
-    for B, T in ((64, 631), (256, 2551), (1, 160), (1, 352), (1, 1600)):
-        for kind in ("integral", "float", "all128"):
-            soft = torch.from_numpy(soft_bytes(kind, B, T,
-                                               seed=B + T)).to(dev)
-            got = vk.viterbi_decode_soft_cuda(soft)
-            torch.cuda.synchronize()
-            want = viterbi_decode_soft(soft)
-            torch.cuda.synchronize()
-            err = int((got.int() - want.int()).abs().max())
-            max_err = max(max_err, err)
-            log(f"viterbi B={B} T={T} {kind}: max |kernel - plain| = {err}")
-            if not torch.equal(got, want):
-                raise AssertionError(f"kernel != plain at B={B} T={T} "
-                                     f"({kind})")
-        soft = torch.from_numpy(soft_bytes("integral", B, T, seed=1)).to(dev)
-        ms = _time_ms(lambda: vk.viterbi_decode_soft_cuda(soft), 50)
-        plain_ms = _time_ms(lambda: viterbi_decode_soft(soft), 2)
-        timing[(B, T)] = (ms, plain_ms)
-        log(f"viterbi B={B} T={T}: kernel {ms:.4f} ms, plain torch "
+    for B, T in MAIN_SHAPES:
+        soft = torch.from_numpy(soft_bytes("integral", B, T, seed=1)).to(
+            device=dev, dtype=torch.uint8)
+        ms = call_ms(lambda: vk.viterbi_decode_soft_cuda(soft))
+        dev_ms = device_ms(lambda: vk.viterbi_decode_soft_cuda(soft))
+        plain_ms = call_ms(lambda: viterbi_decode_soft(soft), 2)
+        bound_ms, bound_by = viterbi_bound_ms(B, T)
+        timing[(B, T)] = (ms, dev_ms, plain_ms, bound_ms, bound_by)
+        log(f"viterbi B={B} T={T}: wrapper call {ms:.4f} ms (back to back, "
+            f"host and device); kernel {dev_ms:.4f} ms (device, CUDA "
+            f"graph), {1e6 * dev_ms / T:.1f} ns per trellis step; bound "
+            f"{1e3 * bound_ms:.4f} us (by {bound_by}), "
+            f"{100 * bound_ms / dev_ms:.3f}% of it by device time, "
+            f"{100 * bound_ms / ms:.3f}% by call; plain torch "
             f"{plain_ms:.2f} ms  ({card})")
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    log(f"SM clock after the timings, and its maximum: {clocks} ({card})")
     # the R/T framer's own decode entry point, as phases 3 and 5 call it
     for T in (160, 352, 1600):
-        soft = soft_bytes("float", 1, T, seed=T)
+        soft = soft_bytes("random", 1, T, seed=T)
         got = vk.stream_decoder(dev)(soft[0])
         want = viterbi_decode_soft(torch.from_numpy(soft))[0].numpy()
         if not np.array_equal(got, want):
@@ -575,7 +617,7 @@ def main() -> int:
         f"{lband['launches']}, C-band P bank "
         f"{cband['launches'] - cband['rt']}, C-band R/T framers "
         f"{cband['rt']})")
-    ms, plain_ms = kern["timing"][(64, 631)]
+    ms, dev_ms, plain_ms, bound_ms, bound_by = kern["timing"][(64, 631)]
     print(json.dumps({"kernels": [{
         "name": "viterbi_decode_soft_cuda",
         "route": "cuda",
@@ -584,7 +626,11 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": kern["max_abs_err"],
         "ms": ms,
+        "device_ms": dev_ms,
         "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

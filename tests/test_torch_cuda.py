@@ -6,10 +6,12 @@ CUDA device is present.  On the card, from the repository root (the
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-- the kernel is bit-exact against its plain-torch twin (integral, float
-  and all-tie soft inputs; the frame shapes of 1200 and 10500 bps, the
-  R/T checkpoint shapes, and a few ragged ones), counts one launch per
-  call, and rejects what it does not take;
+- the kernel is bit-exact against its plain-torch twin on uint8 soft
+  bytes (integral, uniform random, extreme 0/255 and all-tie inputs; the
+  frame shapes of 1200 and 10500 bps, the R/T checkpoint shapes, a few
+  ragged ones and the largest T the wrapper takes), counts one launch per
+  call, and rejects what it does not take (float32 soft, a bad shape, a
+  T beyond one block's shared memory);
 - the fused station with batch framing decodes the same ACARS on the card
   as on the CPU, through the kernel;
 - one step of a small C-band station (OQPSK 10500 P, 8400 C and a burst
@@ -29,7 +31,7 @@ from aero_tpu_torch.device import set_fp32_precision
 from aero_tpu_torch.ops import viterbi_kernel as vk
 from aero_tpu_torch.protocol.viterbi import viterbi_decode_soft
 from aero_tpu_torch.runtime.fused_station import TEL_SLOTS
-from torch_soft import soft_bytes
+from torch_soft import KERNEL_KINDS, soft_bytes
 
 torch.set_num_threads(2)
 
@@ -195,11 +197,13 @@ def cuda():
 
 
 @pytest.mark.parametrize("B,T", [(64, 631), (256, 2551), (1, 1), (3, 33),
-                                 (5, 64), (130, 95)])
+                                 (5, 64), (130, 95), (2, "max")])
 def test_kernel_bit_exact_vs_plain(cuda, B, T):
-    for kind in ("integral", "float", "all128"):
-        soft = torch.from_numpy(soft_bytes(kind, B, T,
-                                           seed=B * 7 + T)).to(cuda)
+    if T == "max":
+        T = vk.max_t(cuda)
+    for kind in KERNEL_KINDS:
+        soft = torch.from_numpy(soft_bytes(kind, B, T, seed=B * 7 + T)).to(
+            device=cuda, dtype=torch.uint8)
         before = vk.LAUNCHES
         got = vk.viterbi_decode_soft_cuda(soft)
         torch.cuda.synchronize()
@@ -209,13 +213,22 @@ def test_kernel_bit_exact_vs_plain(cuda, B, T):
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
-    soft = torch.full((4, 20), 128.0, device=cuda)
-    with pytest.raises(TypeError):
-        vk.viterbi_decode_soft_cuda(soft.double())
+    soft = torch.full((4, 20), 128, dtype=torch.uint8, device=cuda)
+    before = vk.LAUNCHES
+    for bad in (torch.float32, torch.float64, torch.int16):
+        with pytest.raises(TypeError):
+            vk.viterbi_decode_soft_cuda(soft.to(bad))
     with pytest.raises(ValueError):
         vk.viterbi_decode_soft_cuda(soft[:, :19])
     with pytest.raises(ValueError):
         vk.viterbi_decode_soft_cuda(soft.t())
+    # one block's shared memory holds the main path's longest R/T decode
+    # (T=3040) and T=16384; one step more than the bound raises
+    assert vk.max_t(cuda) >= 16384
+    with pytest.raises(ValueError):
+        vk.viterbi_decode_soft_cuda(torch.full(
+            (1, 2 * vk.max_t(cuda) + 2), 128, dtype=torch.uint8, device=cuda))
+    assert vk.LAUNCHES == before
 
 
 def test_station_on_card_matches_cpu(cuda):
@@ -249,7 +262,7 @@ def test_kernel_bit_exact_at_rt_shapes(cuda, rows):
     framer's decoder on the card."""
     T = rows * 32
     dec = vk.stream_decoder(cuda)
-    for kind in ("integral", "float", "all128"):
+    for kind in KERNEL_KINDS:
         soft = soft_bytes(kind, 1, T, seed=rows)
         before = vk.LAUNCHES
         got = dec(soft[0])

@@ -1,27 +1,33 @@
 """The port's import boundary and its drift guard against ``aero_tpu``.
 
-1. With ``jax`` blocked on the import path (the condition on a machine
-   that has no JAX), every module of ``aero_tpu_torch`` imports.
-2. Statically, the port imports nothing of ``aero_tpu`` beyond
-   ``aero_tpu.native`` and ``aero_tpu.utils.signals``, and never ``jax``.
+1. With ``jax`` and ``aero_tpu`` blocked on the import path (the condition
+   on a machine that has no JAX), every module of ``aero_tpu_torch``
+   imports.
+2. Statically, the port, ``chip_smoke.py``, the port's tools and the test
+   helpers that run on the card import nothing of ``aero_tpu`` and never
+   ``jax``.
 3. Drift guard: each verbatim copy equals its ``aero_tpu`` original after
-   the ``aero_tpu.`` -> ``aero_tpu_torch.`` import rewrite, and the copied
-   functions, methods and modules (station accounting, the fused
-   station's ``quantize`` / ``_drain`` / ``vfo_telemetry`` /
-   ``vfo_spectrum``, the batched framer bank's ``feed`` / ``flush``, the
-   burst wrapper's ``process``, the R/T framer module) parse to the same
-   syntax tree as the originals, up to the listed substitutions.  A later
-   fix to ``aero_tpu`` fails here until the port takes it too.
+   the ``aero_tpu`` -> ``aero_tpu_torch`` import rewrite, the native C++
+   sources are byte-for-byte copies, the port's native libraries give the
+   reference's outputs, and the copied functions, methods and modules
+   (station accounting, the fused station's ``quantize`` / ``_drain`` /
+   ``vfo_telemetry`` / ``vfo_spectrum``, the batched framer bank's
+   ``feed`` / ``flush``, the burst wrapper's ``process``, the R/T framer
+   module) parse to the same syntax tree as the originals, up to the
+   listed substitutions.  A later fix to ``aero_tpu`` fails here until the
+   port takes it too.
 """
 
 import ast
 import inspect
 import os
 import re
+import shutil
 import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -32,17 +38,22 @@ VERBATIM = ["protocol/crc.py", "protocol/scrambler.py",
             "protocol/isu.py", "protocol/acars.py", "protocol/su_dispatch.py",
             "protocol/database.py", "protocol/c_framing.py",
             "channelizer/config.py", "ops/design.py", "io/output.py",
-            "io/forwarder.py"]
+            "io/forwarder.py", "utils/signals.py"]
 
-ALLOWED_FROM_JAX_PACKAGE = {"aero_tpu", "aero_tpu.native",
-                            "aero_tpu.utils.signals"}
+NATIVE_SOURCES = ["native/ingest.cc", "native/viterbi.cc"]
+
+# files outside the package that run on the card's machine (no JAX there)
+CARD_SIDE = ["chip_smoke.py", "tools/torch_profile_step.py",
+             "tools/viterbi_time.py", "tests/torch_soft.py",
+             "tests/torch_station_bank.py", "tests/test_torch_cuda.py"]
 
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
 class _NoJax:
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith("jax.") or name == "jaxlib":
-            raise ImportError("jax is blocked: " + name)
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "aero_tpu"):
+            raise ImportError("blocked: " + name)
 sys.meta_path.insert(0, _NoJax())
 sys.path.insert(0, sys.argv[1])
 import aero_tpu_torch
@@ -50,16 +61,18 @@ names = [m.name for m in pkgutil.walk_packages(aero_tpu_torch.__path__,
                                                "aero_tpu_torch.")]
 for n in names:
     importlib.import_module(n)
-assert not any(k == "jax" or k.startswith("jax.") for k in sys.modules)
+assert not any(k.split(".")[0] in ("jax", "aero_tpu") for k in sys.modules)
 print(len(names))
 """
 
 
-def _port_files():
+def _scanned_files():
     for d, _, files in os.walk(PORT):
         for f in files:
             if f.endswith(".py"):
                 yield os.path.join(d, f)
+    for rel in CARD_SIDE:
+        yield os.path.join(ROOT, rel)
 
 
 def test_port_imports_with_jax_blocked():
@@ -71,28 +84,23 @@ def test_port_imports_with_jax_blocked():
 
 def test_port_import_boundary_is_static():
     bad = []
-    for path in _port_files():
+    for path in _scanned_files():
         tree = ast.parse(open(path).read(), path)
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
                 mods = [a.name for a in node.names]
             elif isinstance(node, ast.ImportFrom) and node.module:
                 mods = [node.module]
-                if node.module == "aero_tpu":
-                    mods = [f"aero_tpu.{a.name}" for a in node.names]
             else:
                 continue
             for m in mods:
-                top = m.split(".")[0]
-                if top in ("jax", "jaxlib") or (
-                        top == "aero_tpu"
-                        and m not in ALLOWED_FROM_JAX_PACKAGE):
+                if m.split(".")[0] in ("jax", "jaxlib", "aero_tpu"):
                     bad.append((os.path.relpath(path, ROOT), m))
     assert not bad, bad
 
 
 def _rewrite_imports(src: str) -> str:
-    return re.sub(r"^(\s*(?:from|import) )aero_tpu\.", r"\1aero_tpu_torch.",
+    return re.sub(r"^(\s*(?:from|import) )aero_tpu(?=[. ])", r"\1aero_tpu_torch",
                   src, flags=re.M)
 
 
@@ -103,6 +111,59 @@ def test_verbatim_copies_match(rel):
     assert port == _rewrite_imports(orig), (
         f"aero_tpu_torch/{rel} drifted from aero_tpu/{rel}: copy it again "
         "(only import lines may differ)")
+
+
+@pytest.mark.parametrize("rel", NATIVE_SOURCES)
+def test_native_sources_are_byte_copies(rel):
+    with open(os.path.join(ROOT, "aero_tpu", rel), "rb") as f:
+        orig = f.read()
+    with open(os.path.join(PORT, rel), "rb") as f:
+        assert f.read() == orig, (
+            f"aero_tpu_torch/{rel} drifted from aero_tpu/{rel}: copy it again")
+
+
+@pytest.fixture
+def natives():
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the native libraries")
+    from aero_tpu import native as jn
+    from aero_tpu_torch import native as tn
+    assert tn.have_native() and tn.have_native_ingest()
+    assert jn.have_native() and jn.have_native_ingest()
+    return jn, tn
+
+
+@pytest.mark.parametrize("dtype", ["int4", "int2", "int8", "int16"])
+def test_native_quantize_matches_reference(natives, dtype):
+    jn, tn = natives
+    rng = np.random.default_rng(len(dtype))
+    iq = (0.3 * (rng.standard_normal(4096) + 1j * rng.standard_normal(4096))
+          ).astype(np.complex64)
+    iq[:8] = [0, 1.5, -1.5, 0.07 + 0.5j, -0.0714 - 0.0715j, 1e-9, 2j, -2j]
+    want, got = jn.quantize_native(iq, dtype), tn.quantize_native(iq, dtype)
+    if dtype == "int2":
+        np.testing.assert_array_equal(got[0], want[0])
+        assert got[1] == want[1]
+    else:
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+
+def test_native_viterbi_matches_reference(natives):
+    jn, tn = natives
+    rng = np.random.default_rng(9)
+    for n in (2, 124, 1262, 5102):
+        soft = rng.integers(0, 256, n).astype(np.float32)
+        np.testing.assert_array_equal(tn.viterbi_decode_soft_native(soft),
+                                      jn.viterbi_decode_soft_native(soft))
+
+
+def test_native_libraries_build_outside_the_reference(natives):
+    _, tn = natives
+    assert tn.BUILD_DIR == os.path.join(ROOT, "build", "aero_tpu_torch")
+    built = [f for f in os.listdir(tn.BUILD_DIR) if f.endswith(".so")]
+    assert any(f.startswith("libaeroviterbi_") for f in built)
+    assert any(f.startswith("libaeroingest_") for f in built)
 
 
 def _tree(obj, subs=()):

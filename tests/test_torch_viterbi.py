@@ -10,7 +10,9 @@ interpret mode.
 
 The CUDA kernel itself is compared with the plain version on the card by
 tests/test_torch_cuda.py, which imports no JAX (the card's machine has
-none).
+none).  It takes uint8 soft bytes; here the wrapper's CPU path (the twin)
+is held against JAX on uint8 and float32 copies of the same bytes, and
+the host checks and shared-memory limits around the kernel are tested.
 """
 
 import numpy as np
@@ -57,6 +59,40 @@ def test_wrapper_on_cpu_is_the_plain_decoder():
         vk.viterbi_decode_soft_cuda(soft.numpy())
 
 
+@pytest.mark.parametrize("kind", ["integral", "random", "extreme"])
+def test_wrapper_on_uint8_and_float32_matches_jax(kind):
+    B, T = 4, 131
+    soft = soft_bytes(kind, B, T, seed=11)
+    want = np.asarray(jax.vmap(j_decode)(jnp.asarray(soft, jnp.float32)))
+    for dt in (torch.uint8, torch.float32):
+        got = vk.viterbi_decode_soft_cuda(torch.from_numpy(soft).to(dt))
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=str(dt))
+
+
+def test_host_soft_bytes_check():
+    dec = vk.stream_decoder("cpu")
+    soft = soft_bytes("random", 1, 40, seed=2)[0]
+    want = viterbi_decode_soft(torch.from_numpy(soft)[None])[0].numpy()
+    np.testing.assert_array_equal(dec(soft.astype(np.float32)), want)
+    np.testing.assert_array_equal(dec(soft.astype(np.int16)), want)
+    for bad in (0.5, -1.0, 256.0, np.nan):
+        row = soft.astype(np.float32)
+        row[7] = bad
+        with pytest.raises(ValueError):
+            dec(row)
+
+
+def test_kernel_shared_memory_limit():
+    """The shared-memory bound on T is the card's alone: a CPU tensor
+    longer than any H100 block holds (T > 23240) goes to the twin, and
+    neither the kernel's library nor its bound is asked for."""
+    lib, cached = vk._lib, dict(vk._max_t)
+    soft = torch.from_numpy(soft_bytes("random", 1, 24000, seed=5))
+    np.testing.assert_array_equal(vk.viterbi_decode_soft_cuda(soft).numpy(),
+                                  viterbi_decode_soft(soft).numpy())
+    assert vk._lib is lib and vk._max_t == cached
+
+
 def _frames(rate, n_fields, seed, noise=0.0):
     rng = np.random.default_rng(seed)
     per = FRAME_SPECS[rate].payload_info_bits // 96
@@ -98,6 +134,28 @@ def test_batch_decode_p_frames_bit_exact(rate, pre_deint):
     np.testing.assert_array_equal(got["su_ok"].numpy(),
                                   np.asarray(want["su_ok"]))
     assert got["su_ok"].numpy()[1:-1].any()
+
+
+def test_batch_decode_p_frames_uint8_as_on_the_card():
+    """The card's buffer is uint8 (prefixes | payload | 128s): whole-byte
+    payloads decode the same in uint8 as in float32, and as in JAX."""
+    rate = 1200
+    spec = FRAME_SPECS[rate]
+    rng = np.random.default_rng(3)
+    payloads = rng.integers(0, 256, (5, spec.payload_soft_bits),
+                            dtype=np.uint8)
+    prefixes = rng.integers(0, 256, (5, 62), dtype=np.uint8)
+    want = jbf.batch_decode_p_frames(jnp.asarray(payloads, jnp.float32),
+                                     jnp.asarray(prefixes, jnp.float32),
+                                     rate=rate)
+    for dt in (torch.uint8, torch.float32):
+        got = tbf.batch_decode_p_frames(torch.from_numpy(payloads).to(dt),
+                                        torch.from_numpy(prefixes).to(dt),
+                                        rate=rate)
+        np.testing.assert_array_equal(got["info_bits"].numpy(),
+                                      np.asarray(want["info_bits"]))
+        np.testing.assert_array_equal(got["su_ok"].numpy(),
+                                      np.asarray(want["su_ok"]))
 
 
 def test_crc16_check_batch_matches_jax():

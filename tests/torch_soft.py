@@ -7,11 +7,13 @@ from aero_tpu_torch.protocol.viterbi import conv_encode
 
 
 def soft_bytes(kind, B, T, seed=0):
-    """[B, 2T] float32 soft bytes (0..255) from a numpy seed.
+    """[B, 2T] soft bytes (0..255) from a numpy seed.
 
-    ``integral``: conv_encode of random bits plus noise, rounded to whole
-    bytes; ``float``: uniform random floats; ``all128``: every compare of
-    the trellis ties."""
+    float32: ``integral``: conv_encode of random bits plus noise, rounded
+    to whole bytes; ``float``: uniform random floats (the twin and JAX
+    take them; the kernel does not); ``all128``: every compare of the
+    trellis ties.  uint8: ``random``: uniform whole bytes; ``extreme``:
+    random 0/255 only, the fastest growth of the path metrics."""
     rng = np.random.default_rng(seed)
     if kind == "integral":
         bits = rng.integers(0, 2, size=(B, T)).astype(np.uint8)
@@ -21,4 +23,14 @@ def soft_bytes(kind, B, T, seed=0):
                                 * 127 + 128), 0, 255).astype(np.float32)
     if kind == "float":
         return rng.uniform(0, 255, size=(B, 2 * T)).astype(np.float32)
-    return np.full((B, 2 * T), 128.0, np.float32)
+    if kind == "random":
+        return rng.integers(0, 256, size=(B, 2 * T), dtype=np.uint8)
+    if kind == "extreme":
+        return (255 * rng.integers(0, 2, size=(B, 2 * T))).astype(np.uint8)
+    if kind == "all128":
+        return np.full((B, 2 * T), 128.0, np.float32)
+    raise ValueError(kind)
+
+
+# the kinds the CUDA kernel takes (whole bytes), for its tests on the card
+KERNEL_KINDS = ("integral", "random", "extreme", "all128")
