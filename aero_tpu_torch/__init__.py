@@ -13,19 +13,28 @@ layout and names so each module's counterpart is found at the same path:
                                  demodulators, batched over a VFO axis,
                                  their coarse-frequency estimator, and the
                                  burst (R/T) window demodulators.
-- ``aero_tpu_torch.channelizer`` the WOLA polyphase filterbank.
+- ``aero_tpu_torch.channelizer`` the tree channelizer (NCO mix, halfband
+                                 cascades, USB demod) and the WOLA
+                                 polyphase filterbank.
 - ``aero_tpu_torch.protocol``    Viterbi (plain torch twin + host streaming
                                  decoder), batched P-channel framing, the
                                  R/T framer with an injected decoder, and
-                                 verbatim copies of the jax-free framers.
-- ``aero_tpu_torch.runtime``     the fused station and its CLI.
+                                 verbatim copies of the jax-free framers
+                                 and ACARS application decoders.
+- ``aero_tpu_torch.parallel``    batched demod banks on one device.
+- ``aero_tpu_torch.runtime``     the fused and classic stations, their
+                                 checkpoints (the JAX format), the
+                                 single-VFO decoder, and the station,
+                                 decode and publish CLIs.
 - ``aero_tpu_torch.native``      the host C++ libraries (ingest quantizers,
                                  the streaming Viterbi), copies of
                                  ``aero_tpu/native``'s sources, built
                                  with g++ into ``build/aero_tpu_torch/``.
-- ``aero_tpu_torch.utils``       the signal notifier of the CLI.
+- ``aero_tpu_torch.utils``       the CLIs' signal notifier, logging and
+                                 profiling helpers.
 - ``aero_tpu_torch.convert``     carries JAX state trees into the port and
-                                 back (the parity tests' teacher forcing).
+                                 back (the parity tests' teacher forcing,
+                                 the checkpoints' leaf order).
 
 The package imports ``torch``, numpy and scipy, never ``jax``, and nothing
 of ``aero_tpu``: where it needs a jax-free module of the reference it

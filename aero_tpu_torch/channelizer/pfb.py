@@ -1,8 +1,9 @@
 """Polyphase (WOLA) filterbank channelizer (torch).
 
 Counterpart of ``aero_tpu/channelizer/pfb.py``: ``pfb_prototype`` (the same
-numpy design), ``pfb_init``, ``pfb_channelize``, ``pfb_channelize_fused``
-and ``pfb_bin_for_freq``.  Channel k of the output is the input mixed down
+numpy design), ``pfb_init``, ``pfb_channelize``, ``pfb_channelize_fused``,
+``pfb_bin_for_freq``, ``pfb_extract_vfo`` and the ``PfbChannelizer``
+backend of the classic station.  Channel k of the output is the input mixed down
 by k*fs/K, filtered by the prototype and decimated by the hop M = K/2:
 
     z[k, m] = sum_j h[j] x[mM - j] exp(-2j pi k (mM - j) / K)
@@ -15,12 +16,15 @@ and imaginary rows (cuDNN on the card, held at full float32).
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from aero_tpu_torch.device import resolve_device
 from aero_tpu_torch.ops.design import low_pass_design
+from aero_tpu_torch.ops.nco import cis, fused_mul_add
 
 
 @functools.lru_cache(maxsize=None)
@@ -114,3 +118,107 @@ def pfb_channelize_fused(state, x, K: int, taps_per_branch: int = 8):
 def pfb_bin_for_freq(freq_hz: float, fs: float, K: int) -> int:
     """Nearest bin index for a baseband frequency (may be negative)."""
     return int(np.round(freq_hz / (fs / K))) % K
+
+
+def pfb_extract_vfo(z_k, phase, residual_norm):
+    """Residual-mix one PFB channel to center a VFO exactly.
+
+    z_k: [F] channel samples at rate fs/(K//2); residual_norm = residual
+    frequency in cycles per OUTPUT sample.  Returns (new_phase, centered
+    complex baseband).  The ramps round once, as XLA's CPU compiler
+    contracts ``phase + r*n`` (``ops/nco.py:fused_mul_add``)."""
+    F_len = z_k.shape[-1]
+    phase, residual_norm = (torch.as_tensor(v, dtype=torch.float32,
+                                            device=z_k.device)
+                            for v in (phase, residual_norm))
+    n = torch.arange(F_len, dtype=torch.float32, device=z_k.device)
+    ramp = fused_mul_add(residual_norm, n, phase)
+    osc = cis((-2.0 * math.pi) * torch.remainder(ramp, 1.0))
+    new_phase = torch.remainder(fused_mul_add(residual_norm, F_len, phase),
+                                1.0)
+    return new_phase, z_k * osc
+
+
+class PfbChannelizer:
+    """Alternative to ``Channelizer`` for uniform-rate VFO banks, on
+    ``device``.
+
+    Groups sub VFOs by output rate; each group gets one K = 2*fs/out_rate
+    filterbank pass, then a batched residual mix + real-audio conversion
+    per VFO.  Main-VFO IQ topics are not supported here (use the tree
+    channelizer for those): the constructor asserts, as the JAX one does.
+    The state per rate is the complex64 filterbank carry [L - M] and the
+    residual-mix phases [n]."""
+
+    def __init__(self, cfg, audio_center: float = 1000.0, gain: float = 10.0,
+                 device="cuda"):
+        from collections import defaultdict
+        self.cfg = cfg
+        self.fs = cfg.sample_rate
+        self.audio_center = audio_center
+        self.gain = gain
+        self.device = resolve_device(device)
+        assert not any(m.topic for m in cfg.mains), \
+            "PFB backend serves sub-VFO audio only"
+        self.groups = defaultdict(list)
+        for i, s in enumerate(cfg.subs):
+            self.groups[s.out_rate].append(i)
+        self._state = {}
+        self._phase = {}
+        self._params = {}
+        for out_rate, idxs in self.groups.items():
+            K = int(round(2 * self.fs / out_rate))
+            assert abs(2 * self.fs / out_rate - K) < 1e-9, \
+                f"out_rate {out_rate} incompatible with fs {self.fs}"
+            bins = []
+            resid = []
+            for i in idxs:
+                s = self.cfg.subs[i]
+                delta = s.freq - cfg.center_frequency
+                k = pfb_bin_for_freq(delta, self.fs, K)
+                kc = k if k < K // 2 else k - K
+                r = delta - kc * self.fs / K
+                bins.append(k)
+                # USB-audio convention: audio frequency = signal - rf, so
+                # the bin output only needs the -r residual shift
+                resid.append(-r / out_rate)
+            self._params[out_rate] = (
+                K, torch.as_tensor(np.asarray(bins, np.int64),
+                                   device=self.device),
+                torch.as_tensor(np.asarray(resid, np.float32),
+                                device=self.device))
+            self._state[out_rate] = pfb_init(K, device=self.device)
+            self._phase[out_rate] = torch.zeros(len(idxs),
+                                                dtype=torch.float32,
+                                                device=self.device)
+
+    def _group_step(self, out_rate, x):
+        """One rate group: (new carry, new phases, int16 pcm [n, F])."""
+        K, bins, resid = self._params[out_rate]
+        chan = (pfb_channelize_fused if (x.shape[-1] // (K // 2)) % 2 == 0
+                else pfb_channelize)
+        st, z = chan(self._state[out_rate], x, K)
+        zb = z[bins]                                   # [n, F]
+        F_len = zb.shape[1]
+        phase = self._phase[out_rate]
+        n = torch.arange(F_len, dtype=torch.float32, device=x.device)
+        ramp = fused_mul_add(resid[:, None], n, phase[:, None])
+        osc = cis((2.0 * math.pi) * torch.remainder(ramp, 1.0))
+        new_phase = torch.remainder(fused_mul_add(resid, F_len, phase), 1.0)
+        audio = (zb * osc).real * self.gain * 32768.0
+        pcm = torch.clamp(audio, -32767.0, 32767.0).to(torch.int16)
+        return st, new_phase, pcm
+
+    def process(self, iq: np.ndarray) -> list:
+        """iq [T] complex64 -> [(topic, out_rate, int16 audio payload), ...]"""
+        out = []
+        iq = np.asarray(iq, np.complex64)
+        x = torch.from_numpy(np.ascontiguousarray(iq)).to(self.device)
+        for out_rate, idxs in self.groups.items():
+            self._state[out_rate], self._phase[out_rate], pcm = \
+                self._group_step(out_rate, x)
+            pcm = pcm.cpu().numpy()
+            for row, i in enumerate(idxs):
+                out.append((self.cfg.subs[i].topic, out_rate,
+                            pcm[row].astype("<i2").tobytes()))
+        return out

@@ -70,15 +70,6 @@ def msk_state_from_numpy(state, device="cpu", c64_axis: int = 0) -> MskState:
     return state_from_numpy(state, MskState, device, c64_axis)
 
 
-def state_to_numpy(state, pack: bool = False, c64_axis: int = 0):
-    """The port's demod state -> the same NamedTuple of numpy leaves; with
-    ``pack`` the complex leaves become ``{"__c64__": planes}``."""
-    leaves = [v.detach().cpu().numpy() for v in state]
-    if pack:
-        leaves = [_pack(v, c64_axis) for v in leaves]
-    return type(state)(*leaves)
-
-
 def fused_state_from_numpy(tree, device="cpu") -> dict:
     """The JAX ``FusedStation._state`` (numpy leaves) -> the port's:
     {"pfb": {out_rate: [2, N] f32}, "grp": {key: {"phase", "demod",
@@ -87,7 +78,7 @@ def fused_state_from_numpy(tree, device="cpu") -> dict:
     (out_rate, data_rate, burst).  A burst group has only "phase"."""
     out = {"pfb": {}, "grp": {}}
     for rate, planes in tree["pfb"].items():
-        out["pfb"][rate] = _to_tensor(_unpack({_TAG: planes}, 0), device)
+        out["pfb"][rate] = planes_to_c64(planes, device)
     for key, g in tree["grp"].items():
         ng = {"phase": _to_tensor(np.asarray(g["phase"]), device)}
         if "demod" in g:
@@ -100,19 +91,85 @@ def fused_state_from_numpy(tree, device="cpu") -> dict:
     return out
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a tree in ``jax.tree_util.tree_leaves`` order: dict
+    keys sorted, NamedTuple fields and list/tuple items in order, a packed
+    ``{"__c64__": planes}`` one leaf (its planes).  A checkpoint's
+    ``dev_i`` entries are these leaves, so the order must be JAX's."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_unflatten(template, leaves):
+    """Inverse of ``tree_leaves``: a tree shaped like ``template`` (dict
+    keys in the template's order, NamedTuple types kept) whose leaves are
+    taken from ``leaves`` in ``tree_leaves`` order."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            built = {k: build(node[k]) for k in sorted(node)}
+            return {k: built[k] for k in node}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(build(v) for v in node))
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v) for v in node)
+        return next(it)
+    out = build(template)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the template holds")
+    return out
+
+
+def tree_to_numpy(tree, c64_axis: int = 1):
+    """A port tree of tensors (dicts, lists, NamedTuples) -> the JAX
+    layout: numpy leaves, complex ones packed as ``{"__c64__": planes}``
+    with the planes on ``c64_axis`` (1 under a per-VFO stack)."""
+    if isinstance(tree, torch.Tensor):
+        return _pack(tree.detach().cpu().numpy(), c64_axis)
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v, c64_axis) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_to_numpy(v, c64_axis) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to_numpy(v, c64_axis) for v in tree)
+    return tree
+
+
+def tree_from_numpy(tree, device="cpu", c64_axis: int = 1):
+    """Inverse of ``tree_to_numpy``: tensors on ``device``, packed complex
+    leaves back to complex64."""
+    if isinstance(tree, dict):
+        if set(tree) == {_TAG}:
+            return _to_tensor(_unpack(tree, c64_axis), device)
+        return {k: tree_from_numpy(v, device, c64_axis)
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_from_numpy(v, device, c64_axis)
+                            for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_from_numpy(v, device, c64_axis) for v in tree)
+    return _to_tensor(np.asarray(tree), device)
+
+
+def planes_to_c64(planes, device="cpu") -> torch.Tensor:
+    """float32 [2, ...] re/im planes (an unbatched packed carry, such as
+    a filterbank's) -> a complex64 tensor on ``device``."""
+    return _to_tensor(_unpack({_TAG: planes}, 0), device)
+
+
+def c64_to_planes(z: torch.Tensor) -> np.ndarray:
+    """Inverse of ``planes_to_c64``."""
+    return _pack(z.detach().cpu().numpy(), 0)[_TAG]
+
+
 def fused_state_to_numpy(state) -> dict:
     """Inverse of ``fused_state_from_numpy``: the JAX station's layout,
     numpy leaves (``jax.tree.map(jnp.asarray, ...)`` makes it a state the
     JAX station can run on)."""
-    out = {"pfb": {}, "grp": {}}
-    for rate, z in state["pfb"].items():
-        out["pfb"][rate] = _pack(z.detach().cpu().numpy(), 0)[_TAG]
-    for key, g in state["grp"].items():
-        ng = {"phase": g["phase"].detach().cpu().numpy()}
-        if "demod" in g:
-            ng["demod"] = state_to_numpy(g["demod"], pack=True, c64_axis=1)
-        if "hunt" in g:
-            ng["hunt"] = {k: v.detach().cpu().numpy()
-                          for k, v in g["hunt"].items()}
-        out["grp"][key] = ng
-    return out
+    return {"pfb": {rate: c64_to_planes(z)
+                    for rate, z in state["pfb"].items()},
+            "grp": tree_to_numpy(state["grp"])}

@@ -1,2 +1,3 @@
-"""Host I/O: output formats and TCP/UDP forwarders (verbatim copies of
-``aero_tpu.io.output`` and ``aero_tpu.io.forwarder``)."""
+"""Host I/O: output formats, TCP/UDP forwarders, the ZMQ wire transport
+and SoapySDR ingest (verbatim copies of the jax-free ``aero_tpu.io``
+modules)."""

@@ -22,6 +22,7 @@ import functools
 import numpy as np
 import torch
 
+from aero_tpu_torch.device import resolve_device
 from aero_tpu_torch.ops.fir import convolve_same
 
 
@@ -60,14 +61,23 @@ def _bool_runs(mask: np.ndarray):
 
 class BurstWindowDemodulator:
     def __init__(self, cfg, window_fn, rho_threshold: float = 0.35,
-                 device="cpu"):
+                 device="cuda"):
         self.cfg = cfg
         self._window_fn = window_fn
         self._ring = np.zeros(0, np.float32)
         self._noise_floor = 0.0
         self.rho_threshold = rho_threshold
         self.freq_center = float(cfg.freq_center)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
+
+    @property
+    def state(self):                   # runtime/decoder compatibility
+        return None
+
+    def set_center(self, freq_center: float):
+        """Hunter retune hook (ref decode.cpp:182,211 retunes burst demods
+        too): shifts the per-window coarse-CFO search center."""
+        self.freq_center = float(max(100.0, freq_center))
 
     def _smooth_len(self) -> int:
         return 8 * getattr(self.cfg, "sps", 20)

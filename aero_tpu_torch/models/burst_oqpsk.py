@@ -121,6 +121,6 @@ class BurstOqpskDemodulator(BurstWindowDemodulator):
     """Host wrapper: detection over blocks + per-burst window demod, with
     the window functions and detection statistics on ``device``."""
 
-    def __init__(self, fs: float, fb: float, device="cpu", **kw):
+    def __init__(self, fs: float, fb: float, device="cuda", **kw):
         super().__init__(make_config(fs, fb, **kw), burst_oqpsk_window,
                          device=device)

@@ -30,6 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from aero_tpu_torch.device import resolve_device
 from aero_tpu_torch.ops.design import msk_matched_filter
 from aero_tpu_torch.ops.fir import fir_init, fir_apply
 from aero_tpu_torch.ops.nco import cis, nco_init, nco_mix
@@ -492,6 +493,34 @@ def msk_step(state: MskState, samples, cfg: MskConfig):
         "scatter": scatter,
     }
     return new_state, out
+
+
+class MskDemodulator:
+    """Host wrapper: one VFO, streaming over blocks, on ``device``."""
+
+    def __init__(self, fs: float, fb: float, device="cuda", **kw):
+        self.cfg = make_config(fs, fb, **kw)
+        self.device = resolve_device(device)
+        self.state = msk_init(self.cfg, 1, self.device)
+
+    def process(self, samples: np.ndarray):
+        """Whole blocks of ``samples``; one dict of numpy outputs (the
+        VFO axis dropped) per block."""
+        outs = []
+        L = self.cfg.block_len
+        n = (len(samples) // L) * L
+        for i in range(0, n, L):
+            blk = torch.from_numpy(np.ascontiguousarray(
+                samples[i:i + L], np.float32))[None].to(self.device)
+            self.state, out = msk_step(self.state, blk, self.cfg)
+            outs.append({k: v[0].cpu().numpy() for k, v in out.items()})
+        return outs
+
+    def spectrum(self, nbins: int = 256):
+        """Smoothed fold-spectrum snapshot: (freqs_hz, dB)."""
+        from aero_tpu_torch.models.coarse_freq import spectrum_display
+        return spectrum_display(self.state.coarse_y[0].cpu().numpy(),
+                                self.cfg.fs, nbins)
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from aero_tpu_torch.device import resolve_device
 from aero_tpu_torch.ops.design import root_raised_cosine
 from aero_tpu_torch.ops.fir import fir_apply, fir_apply_fft, fir_init
 from aero_tpu_torch.ops.nco import cis, nco_init, nco_mix
@@ -292,9 +293,9 @@ def oqpsk_step(state: OqpskState, samples, cfg: OqpskConfig):
 class OqpskDemodulator:
     """Host wrapper: one VFO, streaming over blocks, on ``device``."""
 
-    def __init__(self, fs: float, fb: float, device="cpu", **kw):
+    def __init__(self, fs: float, fb: float, device="cuda", **kw):
         self.cfg = make_config(fs, fb, **kw)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.state = oqpsk_init(self.cfg, 1, self.device)
 
     def process(self, samples: np.ndarray):

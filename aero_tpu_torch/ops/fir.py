@@ -1,7 +1,8 @@
 """Streaming block FIR filtering (torch).
 
 Counterpart of ``aero_tpu/ops/fir.py`` (``fir_init`` / ``fir_apply`` /
-``fir_apply_fft``).  The carry is the last ``ntaps-1`` inputs
+``fir_apply_fft``, ``fir_decimate_*``, ``delay_*`` and
+``halfband_cascade_*``).  The carry is the last ``ntaps-1`` inputs
 (overlap-save), so a stream cut into blocks filters exactly like one long
 stream: the causal alignment ``y[n] = sum_k h[k] x[n-k]`` holds across
 block boundaries.  A complex input with real taps is filtered as two real
@@ -65,6 +66,66 @@ def fir_apply(state, x, taps):
     y = _corr_valid(xp, taps.flip(0))
     new_state = xp[..., -(k - 1):] if k > 1 else state
     return new_state, y
+
+
+def fir_decimate_init(ntaps: int, batch_shape=(), dtype=torch.float32,
+                      device="cpu"):
+    return torch.zeros(batch_shape + (ntaps - 1,), dtype=dtype, device=device)
+
+
+def fir_decimate_apply(state, x, taps, factor: int):
+    """Causal FIR followed by keep-every-``factor``-th sample: output m is
+    the filter evaluated at input index m*factor.  The block length must
+    be a multiple of ``factor`` (ValueError otherwise), so the carry (the
+    last ntaps-1 inputs) keeps the decimation phase across blocks."""
+    taps = torch.as_tensor(taps, dtype=torch.float32, device=x.device)
+    k = taps.shape[0]
+    if x.shape[-1] % factor:
+        raise ValueError(f"block length {x.shape[-1]} not divisible by "
+                         f"{factor}")
+    xp = torch.cat([state, x], dim=-1)
+    lead = xp.shape[:-1]
+    h = taps.flip(0).reshape(1, 1, -1)
+
+    def conv(z):
+        return F.conv1d(z.reshape(-1, 1, z.shape[-1]), h, stride=factor)
+
+    if xp.is_complex():
+        y = conv(torch.stack([xp.real, xp.imag]))
+        y = torch.complex(y[: y.shape[0] // 2], y[y.shape[0] // 2:])
+    else:
+        y = conv(xp)
+    y = y.reshape(lead + (y.shape[-1],))
+    new_state = xp[..., -(k - 1):] if k > 1 else state
+    return new_state, y
+
+
+def delay_init(n: int, batch_shape=(), dtype=torch.float32, device="cpu"):
+    """Integer delay line state (the reference's DelayThing)."""
+    return torch.zeros(batch_shape + (n,), dtype=dtype, device=device)
+
+
+def delay_apply(state, x):
+    """Delay the block by ``state.shape[-1]`` samples."""
+    n = state.shape[-1]
+    xp = torch.cat([state, x], dim=-1)
+    return xp[..., -n:] if n else state, xp[..., : x.shape[-1]]
+
+
+def halfband_cascade_init(n_stages: int, ntaps: int, batch_shape=(),
+                          dtype=torch.complex64, device="cpu"):
+    return [fir_decimate_init(ntaps, batch_shape, dtype, device)
+            for _ in range(n_stages)]
+
+
+def halfband_cascade_apply(states, x, taps):
+    """Run a 2:1 halfband decimator ``len(states)`` times (block length a
+    multiple of 2**len(states))."""
+    new_states = []
+    for st in states:
+        st, x = fir_decimate_apply(st, x, taps, 2)
+        new_states.append(st)
+    return new_states, x
 
 
 def fir_apply_fft(state, x, taps):

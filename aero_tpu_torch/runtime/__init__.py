@@ -1,1 +1,2 @@
-"""Process runtimes: the fused station and its CLI."""
+"""Process runtimes: the fused and classic stations, checkpoints, the
+single-VFO decoder, and the station, decode and publish CLIs."""

@@ -522,6 +522,23 @@ class FusedStation:
                                                  slip=int(slips[r])),
                         self.dispatchers.get(topic))
 
+    # ---- checkpoint/resume (runtime/checkpoint.py) ----
+
+    def save_checkpoint(self, path: str, residual=None):
+        """Write the full station state (device state, deframer locks and
+        trellis history, reassembly buffers, stats) to one .npz in the JAX
+        station's format; drains pending/in-flight blocks first.
+        ``residual`` stores caller-held wideband IQ (a partial block) so
+        resume is sample-contiguous."""
+        from aero_tpu_torch.runtime.checkpoint import save_station_checkpoint
+        save_station_checkpoint(self, path, residual=residual)
+
+    def load_checkpoint(self, path: str):
+        """Resume from a checkpoint written by this station or the JAX
+        one; the station must have the same VFO configuration (checked)."""
+        from aero_tpu_torch.runtime.checkpoint import load_station_checkpoint
+        load_station_checkpoint(self, path)
+
     def vfo_spectrum(self, topic: str, nbins: int = 256):
         """(freqs_hz, dB) fold-spectrum snapshot for one continuous VFO,
         fetched on demand from the device-resident demod state (the

@@ -49,6 +49,29 @@ Phases (any failure raises and the script exits non-zero):
    the station's state tensors must live on the card.
 6. One step of the C-band station on the card against the same step on
    the host CPU, as phase 4.
+7. The classic path: ``station_main.main`` with ``--backend tree --device
+   cuda`` on configs/aor_w_54_lband.ini, unmodified (one main VFO with
+   its nibble topic, 24 P subs at 600/1200 bps on a 2.5 kHz raster, 2
+   burst R watchers; 384,000-sample blocks), over the 32-block capture of
+   tests/torch_lband54.py: ACARS on 4 subs (600 and 1200) and one R
+   burst on RCH01.  The burst is planted 30 times stronger than the P
+   signals, a workaround and not real traffic: at the file's sub gain the
+   watchers decode no R burst at the P signals' level (see that module).
+   Every planted message and the R packet must come out, with no bad SU
+   on the content VFOs; the R/T framers must have launched the kernel;
+   the station's carries must live on the card.
+   Then, on 12 warm blocks, the mean time per block of the channelizer,
+   the demod banks and the host framing, and under torch.profiler the
+   device operations per block and the device's idle share; and one
+   block through the channelizer and every bank on the card against the
+   host CPU from the same state (carried by a checkpoint).
+8. Checkpoints on the card: the phase 3 capture (fused bank) cut after 5
+   blocks and the phase 7 capture (classic bank) cut after 16, each run
+   as two ``station_main --checkpoint`` runs: the second resumes, and
+   the ACARS of both, per VFO in order, equal the uninterrupted run's.
+9. ``station_main --backend pfb`` (the classic station on the polyphase
+   filterbank) on the phase 3 capture and bank: every planted message on
+   its VFO, no bad SU there.
 
 The last two lines of standard output are the kernels' JSON record and the
 result line ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -82,6 +105,7 @@ from aero_tpu_torch.protocol.rt_framing import build_r_burst
 from aero_tpu_torch.protocol.viterbi import viterbi_decode_soft
 from aero_tpu_torch.runtime import station_main
 from aero_tpu_torch.runtime.fused_station import FusedStation
+from aero_tpu_torch.runtime.station import Station
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path[:0] = [os.path.join(ROOT, "tests"), os.path.join(ROOT, "tools")]
@@ -90,6 +114,7 @@ from torch_soft import KERNEL_KINDS, soft_bytes  # noqa: E402
 from test_torch_cuda import (cband_ini, cband_layout,  # noqa: E402
                              cband_wideband, check_packed, content_vfos)
 from viterbi_time import MAIN_SHAPES, call_ms, device_ms  # noqa: E402
+import torch_lband54 as l54  # noqa: E402
 
 FS = 1536000
 CENTER = 1545000000
@@ -109,6 +134,9 @@ R_PLANTED = R_SLOTS[1]
 R_INFO = (bytes([0x1B, 0x28, 0x0A, 0x0B, 0x0C, 0x77]) + b"SMOKE R"
           ).ljust(17, b"\0")
 R_START_S = 3.0
+# phase 8 cuts the L-band capture after 5 blocks (3.33 s): between each
+# content VFO's first message (its frame ends at 3 s) and its second
+FUSED_SPLIT = 5
 # the C-band bank (phase 5)
 CB_BLOCKS = 27
 CB_P_TEXTS = (("CHIP SMOKE CBAND ONE", "CHIP SMOKE CBAND TWO"),
@@ -284,12 +312,13 @@ def make_wideband(block_len: int, n_blocks: int,
     return wide
 
 
-def run_station_main(argv, box, heard, su):
-    """Run station_main.main in-process on the card with the station
-    instrumented: ``box`` gets the station and the R/T framers' launch
-    counter, ``heard`` every (topic, ACARS text), ``su`` [ok, bad] SU
-    counts of the given P topics.  Returns (jsondump records on stdout,
-    kernel launches over the run)."""
+def run_station_main(argv, box, heard, su, err=None):
+    """Run station_main.main in-process with the station instrumented:
+    ``box`` gets the station and the R/T framers' launch counter,
+    ``heard`` every (topic, ACARS text), ``su`` [ok, bad] SU counts of the
+    given P topics; ``err``, a list, gets the lines written to stderr.
+    Returns (jsondump records on stdout, kernel launches over the
+    run)."""
     def on_station(st):
         box["st"] = st
         box["rt"] = count_rt_launches(st)
@@ -310,11 +339,16 @@ def run_station_main(argv, box, heard, su):
                 return ev
             framer._finish_frame = counting
 
-    out = io.StringIO()
+    out, errs = io.StringIO(), io.StringIO()
     vk.reset_launches()
-    with contextlib.redirect_stdout(out):
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(contextlib.redirect_stdout(out))
+        if err is not None:
+            stack.enter_context(contextlib.redirect_stderr(errs))
         rc = station_main.main(argv, on_station=on_station)
     torch.cuda.synchronize()
+    if err is not None:
+        err += errs.getvalue().splitlines()
     if rc != 0:
         raise AssertionError(f"station_main returned {rc}")
     records = [json.loads(line) for line in out.getvalue().splitlines()
@@ -343,7 +377,7 @@ def _state_tensors(tree):
     elif isinstance(tree, dict):
         for v in tree.values():
             yield from _state_tensors(v)
-    elif isinstance(tree, tuple):
+    elif isinstance(tree, (tuple, list)):
         for v in tree:
             yield from _state_tensors(v)
 
@@ -404,8 +438,8 @@ def phase_main_path(card: str, workdir: str) -> dict:
         f"{launches - rt}, R/T framers {rt}), realtime factor {rtf:.2f}x, "
         f"{per_block:.1f} ms per block (host wall clock incl. first-block "
         f"warm-up; {card})")
-    os.remove(iq)
-    return {"station": st, "launches": launches, "ini": ini}
+    return {"station": st, "launches": launches, "ini": ini, "iq": iq,
+            "heard": heard, "block_len": block_len}
 
 
 # ---- phase 4 ---------------------------------------------------------------
@@ -587,6 +621,278 @@ def stage_times(st, wide, card: str, label: str) -> None:
         for e in top[:6]))
 
 
+# ---- phase 7 ---------------------------------------------------------------
+
+def phase_classic(card: str, workdir: str) -> dict:
+    """Drive station_main --backend tree on configs/aor_w_54_lband.ini,
+    unmodified, over the capture of tests/torch_lband54.py."""
+    t0 = time.perf_counter()
+    wide = l54.make_capture()
+    paths = {k: os.path.join(workdir, f"l54_{k}.cf32") for k in "wab"}
+    wide.tofile(paths["w"])
+    wide[: l54.SPLIT * l54.BLOCK].tofile(paths["a"])
+    wide[l54.SPLIT * l54.BLOCK:].tofile(paths["b"])
+    log(f"54W capture: {l54.N_BLOCKS} blocks x {l54.BLOCK} samples "
+        f"({l54.N_BLOCKS * l54.BLOCK / l54.FS:.2f} s at {l54.FS} S/s), made "
+        f"in {time.perf_counter() - t0:.1f} s (host; {card})")
+    box, heard = {}, []
+    su = {t: [0, 0] for t in l54.CONTENT}
+    argv = ["-c", l54.INI_PATH, "--iq-file", paths["w"], "--backend", "tree",
+            "--device", "cuda", "--format", "jsondump",
+            "-s", "CHIP-SMOKE", "--stats-every", "1e9"]
+    t0 = time.perf_counter()
+    records, launches = run_station_main(argv, box, heard, su)
+    wall = time.perf_counter() - t0
+    st, rt = box["st"], box["rt"][0]
+    log(f"classic path: {len(records)} jsondump records, {len(heard)} ACARS, "
+        f"frames {st.stats.frames}, su_ok {st.stats.su_ok}, su_bad "
+        f"{st.stats.su_bad}, burst windows {st.stats.burst_windows}, "
+        f"packets {st.stats.burst_packets}")
+    missing = l54.planted() - set(heard)
+    if missing:
+        raise AssertionError(f"classic path: messages missing: {missing}")
+    for topic, (ok, bad) in su.items():
+        log(f"{topic}: su_ok {ok} su_bad {bad}")
+        if bad != 0 or ok == 0:
+            raise AssertionError(f"{topic}: su_ok {ok}, su_bad {bad}")
+    r_events = [e for e in st.rt_framers[l54.R_TOPIC].events
+                if e.kind == "R"]
+    if not any(e.infofield[:17] == l54.R_INFO for e in r_events):
+        raise AssertionError(f"the planted R packet is missing on "
+                             f"{l54.R_TOPIC}")
+    if rt <= 0:
+        raise AssertionError(f"classic path: R/T kernel launches {rt}")
+    devs = {t.device.type for t in _state_tensors(st.device_state())}
+    if devs != {"cuda"}:
+        raise AssertionError(f"classic station state on {devs}")
+    log(f"classic path: {l54.N_BLOCKS} blocks in {wall:.2f} s of host wall "
+        f"clock (station_main, first-block warm-up included), kernel "
+        f"launches {launches} (R/T framers {rt}), realtime factor "
+        f"{st.stats.realtime_factor / l54.FS:.2f}x ({card})")
+    return {"station": st, "launches": launches, "rt": rt, "paths": paths,
+            "heard": heard}
+
+
+def classic_stage_times(st, wide, card: str) -> None:
+    """Where a warm classic station's block goes, over the blocks of
+    ``wide`` fed serially: the channelizer (its int16 payloads copied to
+    the host), the demod banks (one step, up to a synchronize) and the
+    rest of ``Station.process`` (host framing, hunters, burst watchers and
+    their decodes), as means per wideband block; then under
+    torch.profiler over 4 blocks the device operations per block, their
+    summed device time and the device's idle share of the block.  The
+    station's sinks are silenced first (the run that fed them is over)."""
+    st.on_acars = lambda *a: None
+    L = st.cfg.buflen_complex
+    n = len(wide) // L
+    spent = {"channelizer": 0.0, "banks": 0.0}
+    ch_process = st.channelizer.process
+
+    def timed_channelizer(iq):
+        t0 = time.perf_counter()
+        out = ch_process(iq)
+        spent["channelizer"] += time.perf_counter() - t0
+        return out
+    st.channelizer.process = timed_channelizer
+    bank_steps = {}
+    for key, bank in st.banks.items():
+        bank_steps[key] = bank.process_block
+
+        def timed_bank(x, _step=bank.process_block):
+            t0 = time.perf_counter()
+            out = _step(x)
+            torch.cuda.synchronize()
+            spent["banks"] += time.perf_counter() - t0
+            return out
+        bank.process_block = timed_bank
+    t0 = time.perf_counter()
+    for b in range(n):
+        st.process(wide[b * L:(b + 1) * L])
+    total = time.perf_counter() - t0
+    host = total - spent["channelizer"] - spent["banks"]
+    log(f"classic block of {L} samples, mean of {n} warm blocks, serial: "
+        f"channelizer {1e3 * spent['channelizer'] / n:.3f} ms, banks "
+        f"{1e3 * spent['banks'] / n:.3f} ms, host framing and burst "
+        f"watchers {1e3 * host / n:.3f} ms, total {1e3 * total / n:.3f} ms "
+        f"({card})")
+    del st.channelizer.process
+    for key, bank in st.banks.items():
+        del bank.process_block
+    from torch.profiler import ProfilerActivity, profile
+    k = 4
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in range(k):
+            st.process(wide[b * L:(b + 1) * L])
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / k
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / k
+    log(f"classic block under the profiler: {len(dev) / k:.1f} device "
+        f"operations, {busy_ms:.3f} ms of device time per block of "
+        f"{wall_ms:.3f} ms, device idle {100 * (1 - busy_ms / wall_ms):.1f}% "
+        f"({card})")
+
+
+def phase_classic_vs_cpu(st, block, workdir: str) -> None:
+    """One classic block on the card against the host CPU from the same
+    state (carried by a checkpoint): the channelizer's payloads (int16
+    audio within one LSB on >= 99% of each payload, main nibbles equal on
+    >= 99.8% of the bytes, the limits of tests/test_torch_channelizer.py)
+    and each demod bank's step (soft bytes within +-1 on >= 99.9%, lock
+    flags and slips equal, as tests/test_torch_msk.py)."""
+    path = os.path.join(workdir, "classic_vs_cpu.ckpt")
+    st.save_checkpoint(path)
+    cpu = Station(st.cfg, device="cpu")
+    cpu.load_checkpoint(path)
+    got = st.channelizer.process(block)
+    want = cpu.channelizer.process(block)
+    worst_lsb, worst_frac, worst_nib = 0, 0.0, 0.0
+    for (topic, rate, g), (t2, r2, w) in zip(got, want):
+        if (topic, rate) != (t2, r2):
+            raise AssertionError(f"channelizer outputs differ: {topic}/{t2}")
+        if topic.startswith("WB"):
+            frac = float((np.frombuffer(g, np.uint8)
+                          != np.frombuffer(w, np.uint8)).mean())
+            worst_nib = max(worst_nib, frac)
+            continue
+        d = np.abs(np.frombuffer(g, "<i2").astype(np.int32)
+                   - np.frombuffer(w, "<i2").astype(np.int32))
+        worst_lsb = max(worst_lsb, int(d.max(initial=0)))
+        worst_frac = max(worst_frac, float((d > 0).mean()) if len(d) else 0)
+    if worst_lsb > 1 or worst_frac > 0.01 or worst_nib > 0.002:
+        raise AssertionError(f"classic channelizer card vs CPU: {worst_lsb} "
+                             f"LSB, {worst_frac} off, nibbles {worst_nib}")
+    audio = {t: np.frombuffer(p, "<i2").astype(np.float32) / 32768.0
+             for t, _, p in want}
+    soft_le1 = 1.0
+    for key, bank in st.banks.items():
+        topics = [st.cfg.subs[i].topic for i in st.groups[key]]
+        L = bank.cfg.block_len
+        x = np.stack([np.resize(audio[t], L) for t in topics])
+        go = bank.process_block(x)
+        co = cpu.banks[key].process_block(x)
+        d = np.abs(go["soft_bits"].cpu().numpy().astype(np.int32)
+                   - co["soft_bits"].numpy().astype(np.int32))
+        soft_le1 = min(soft_le1, float((d <= 1).mean()))
+        for k in ("signal", "slip"):
+            if not np.array_equal(go[k].cpu().numpy(), co[k].numpy()):
+                raise AssertionError(f"bank {key}: {k} differs card vs CPU")
+    if soft_le1 < 0.999:
+        raise AssertionError(f"classic banks card vs CPU: soft bytes within "
+                             f"+-1 on {soft_le1}")
+    log(f"classic block on card vs CPU: int16 audio within {worst_lsb} LSB "
+        f"(off by one on at most {worst_frac:.5f} of a payload), main "
+        f"nibbles differ on {worst_nib:.5f}, bank soft bytes within +-1 on "
+        f"{soft_le1:.6f} (worst bank), lock flags and slips equal")
+
+
+# ---- phase 8 ---------------------------------------------------------------
+
+def _split_file(src: str, block_len: int, n_first: int, workdir: str,
+                tag: str):
+    """The capture ``src`` cut after n_first blocks into two files."""
+    wide = np.fromfile(src, np.complex64)
+    a = os.path.join(workdir, f"{tag}_a.cf32")
+    b = os.path.join(workdir, f"{tag}_b.cf32")
+    wide[: n_first * block_len].tofile(a)
+    wide[n_first * block_len:].tofile(b)
+    return a, b
+
+
+def _by_topic(heard) -> dict:
+    """topic -> its ACARS texts in order."""
+    out = {}
+    for topic, text in heard:
+        out.setdefault(topic, []).append(text)
+    return out
+
+
+def _resumed_run(argv_of, first: str, second: str, ckpt: str, label: str):
+    """Two station_main runs joined by ``--checkpoint``: the ACARS of each
+    (topic, text), the second run's stderr and its kernel launches."""
+    heard_a, heard_b, err = [], [], []
+    run_station_main(argv_of(first) + ["--checkpoint", ckpt], {}, heard_a,
+                     {})
+    size = os.path.getsize(ckpt)
+    _, launches = run_station_main(argv_of(second) + ["--checkpoint", ckpt],
+                                   {}, heard_b, {}, err)
+    if not any("resumed_from" in line for line in err):
+        raise AssertionError(f"{label}: the second run did not resume")
+    log(f"{label}: checkpoint {size} bytes; {len(heard_a)} ACARS before it, "
+        f"{len(heard_b)} after")
+    return heard_a, heard_b, launches
+
+
+def phase_checkpoints(card: str, workdir: str, lband: dict,
+                      classic: dict) -> None:
+    """The 50-VFO fused bank and the 54W classic bank each save at a
+    middle block and a fresh station (a second station_main run) resumes
+    from the file: the ACARS of both runs, in order, equal the
+    uninterrupted run's."""
+    fused_argv = ["-c", lband["ini"], "--backend", "fused",
+                  "--batch-framing", "--device", "cuda",
+                  "--ingest-dtype", "int4", "--format", "jsondump",
+                  "-s", "CHIP-SMOKE", "--stats-every", "1e9"]
+    a, b = _split_file(lband["iq"], lband["block_len"], FUSED_SPLIT,
+                       workdir, "fused")
+    ha, hb, _ = _resumed_run(lambda f: fused_argv + ["--iq-file", f], a, b,
+                             os.path.join(workdir, "fused.ckpt"),
+                             "fused checkpoint")
+    if _by_topic(ha + hb) != _by_topic(lband["heard"]) or not ha or not hb:
+        raise AssertionError("fused resume: the messages differ from the "
+                             "uninterrupted run's")
+    classic_argv = ["-c", l54.INI_PATH, "--backend", "tree", "--device",
+                    "cuda", "--format", "jsondump", "-s", "CHIP-SMOKE",
+                    "--stats-every", "1e9"]
+    ha, hb, launches = _resumed_run(
+        lambda f: classic_argv + ["--iq-file", f], classic["paths"]["a"],
+        classic["paths"]["b"], os.path.join(workdir, "classic.ckpt"),
+        "classic checkpoint")
+    if _by_topic(ha + hb) != _by_topic(classic["heard"]) or not ha or not hb:
+        raise AssertionError("classic resume: the messages differ from the "
+                             "uninterrupted run's")
+    log(f"checkpoints on {card}: fused and classic resumes equal the "
+        f"uninterrupted runs; R/T kernel launches after the classic resume: "
+        f"{launches}")
+
+
+# ---- phase 9 ---------------------------------------------------------------
+
+def phase_pfb(card: str, lband: dict) -> dict:
+    """station_main --backend pfb on the 50-VFO L-band bank (no main
+    topics): every planted message on its VFO."""
+    box, heard = {}, []
+    su = {f"V{v}": [0, 0] for v in CONTENT}
+    argv = ["-c", lband["ini"], "--iq-file", lband["iq"], "--backend", "pfb",
+            "--device", "cuda", "--format", "jsondump",
+            "-s", "CHIP-SMOKE", "--stats-every", "1e9"]
+    t0 = time.perf_counter()
+    _, launches = run_station_main(argv, box, heard, su)
+    wall = time.perf_counter() - t0
+    st = box["st"]
+    for v, (reg, *texts) in CONTENT.items():
+        for text in texts:
+            if (f"V{v}", text) not in heard:
+                raise AssertionError(f"pfb: message {text!r} missing on V{v}")
+        ok, bad = su[f"V{v}"]
+        if bad != 0 or ok == 0:
+            raise AssertionError(f"pfb V{v}: su_ok {ok}, su_bad {bad}")
+    devs = {t.device.type for t in _state_tensors(st.device_state())}
+    if devs != {"cuda"}:
+        raise AssertionError(f"pfb station state on {devs}")
+    log(f"pfb path: {len(heard)} ACARS, frames {st.stats.frames}, su_ok "
+        f"{st.stats.su_ok}, su_bad {st.stats.su_bad}; "
+        f"{st.stats.wideband_samples // st.cfg.buflen_complex} blocks in "
+        f"{wall:.2f} s of host wall clock, realtime factor "
+        f"{st.stats.realtime_factor / FS:.2f}x, kernel launches {launches} "
+        f"({card})")
+    return {"launches": launches}
+
+
 def main() -> int:
     card = phase_environment()
     kern = phase_kernel(card)
@@ -610,13 +916,29 @@ def main() -> int:
             FS, cband["layout"], cband["content"], st.block_len, seed=7),
             "C-band")
         log(f"phases 5-6: {time.perf_counter() - t0:.1f} s ({card})")
+        t0 = time.perf_counter()
+        classic = phase_classic(card, tmp)
+        st = classic["station"]
+        wide = np.fromfile(classic["paths"]["w"], np.complex64)
+        classic_stage_times(st, wide[: 12 * l54.BLOCK], card)
+        phase_classic_vs_cpu(st, wide[12 * l54.BLOCK: 13 * l54.BLOCK], tmp)
+        del wide
+        log(f"phase 7: {time.perf_counter() - t0:.1f} s ({card})")
+        t0 = time.perf_counter()
+        phase_checkpoints(card, tmp, lband, classic)
+        log(f"phase 8: {time.perf_counter() - t0:.1f} s ({card})")
+        t0 = time.perf_counter()
+        pfb = phase_pfb(card, lband)
+        log(f"phase 9: {time.perf_counter() - t0:.1f} s ({card})")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    launches = lband["launches"] + cband["launches"]
+    launches = (lband["launches"] + cband["launches"] + classic["launches"]
+                + pfb["launches"])
     log(f"kernel launches on the main paths: {launches} (L-band "
         f"{lband['launches']}, C-band P bank "
         f"{cband['launches'] - cband['rt']}, C-band R/T framers "
-        f"{cband['rt']})")
+        f"{cband['rt']}, classic 54W R/T framers {classic['rt']}, pfb "
+        f"{pfb['launches']})")
     ms, dev_ms, plain_ms, bound_ms, bound_by = kern["timing"][(64, 631)]
     print(json.dumps({"kernels": [{
         "name": "viterbi_decode_soft_cuda",

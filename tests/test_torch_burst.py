@@ -132,7 +132,8 @@ def test_burst_oqpsk_window(fs):
 
 
 def _over_the_air(demod, framer_mod, sig, fs, fb, oqpsk):
-    dm = demod(fs, fb)
+    port = demod.__module__.startswith("aero_tpu_torch")
+    dm = demod(fs, fb, **({"device": "cpu"} if port else {}))
     acars = []
     fr = framer_mod.RTChannelFramer(oqpsk=oqpsk, on_acars=acars.append)
     evs, streams = [], []
@@ -228,7 +229,7 @@ def test_burst_sensitivity_same_packets(oqpsk, snr_db):
 
 def test_no_bursts_in_noise():
     rng = np.random.default_rng(4)
-    dm = tbm.BurstMskDemodulator(12000, 600)
+    dm = tbm.BurstMskDemodulator(12000, 600, device="cpu")
     got = []
     for _ in range(6):
         for o in dm.process(rng.normal(0, 0.1, 16000).astype(np.float32)):

@@ -1,4 +1,5 @@
-"""The port on a CUDA card: the Viterbi kernel and the fused station.
+"""The port on a CUDA card: the Viterbi kernel, the fused and classic
+stations, and the single-VFO decoder.
 
 These tests import no JAX (the card's machine has none) and skip where no
 CUDA device is present.  On the card, from the repository root (the
@@ -16,7 +17,10 @@ CUDA device is present.  On the card, from the repository root (the
   as on the CPU, through the kernel;
 - one step of a small C-band station (OQPSK 10500 P, 8400 C and a burst
   10500 T watcher) on the card against the same step on the CPU, from the
-  same state, within the limits of ``check_packed``.
+  same state, within the limits of ``check_packed``;
+- the classic station (tree and filterbank backends) decodes the same
+  ACARS on the card as on the CPU, and ``decode_main`` on a burst capture
+  prints the same records on both, its R/T decodes through the kernel.
 
 ``check_packed`` and the C-band bank builders below are shared with
 tests/test_torch_mixed.py and chip_smoke.py (this file imports no JAX, so
@@ -308,3 +312,71 @@ def test_cband_step_on_card_matches_cpu(cuda):
     key = (48000, 10500, False)
     o, nb = card._tel_ofs[key], len(card.groups[key])
     assert tel[o: o + nb].sum() > 0, "no P VFO was locked at the step"
+
+
+@pytest.mark.parametrize("backend", ["tree", "pfb"])
+def test_classic_station_on_card_matches_cpu(cuda, backend):
+    """The classic station (tree channelizer or filterbank, then the demod
+    banks) on the bank of tests/torch_station_bank.py: the same ACARS and
+    the same frame and SU counts on the card as on the CPU, and its
+    carries on the card."""
+    from aero_tpu_torch.channelizer import load_ini
+    from aero_tpu_torch.runtime.station import Station
+    from torch_station_bank import INI, make_wideband
+
+    cfg = load_ini(INI, is_text=True)
+    B = cfg.buflen_complex
+    w = np.concatenate([make_wideband(), np.zeros(4 * B, np.complex64)])
+    results = {}
+    for dev in ("cpu", "cuda"):
+        got = []
+        st = Station(cfg, backend=backend, device=dev,
+                     on_acars=lambda v, it: got.append((v, it.message)))
+        for i in range(0, len(w) - B + 1, B):
+            st.process(w[i:i + B])
+        results[dev] = (sorted(set(got)), st.stats.frames, st.stats.su_ok,
+                        st.stats.su_bad)
+    assert ("X", "BATCH XX") in results["cuda"][0]
+    assert results["cuda"] == results["cpu"]
+    assert all(b.states.freq.device.type == "cuda" for b in st.banks.values())
+
+
+def test_decode_main_burst_on_card_matches_cpu(cuda, tmp_path, capsys):
+    """decode_main on a burst T capture (the scenario of
+    tests/test_runtime.py): the same records on the card as on the CPU,
+    and the R/T framer's checkpoint decodes launch the kernel."""
+    import json
+    import wave
+    from aero_tpu_torch.models.msk import msk_modulate
+    from aero_tpu_torch.protocol.isu import make_acars_userdata, segment_isu
+    from aero_tpu_torch.protocol.rt_framing import build_t_burst
+    from aero_tpu_torch.runtime import decode_main
+
+    sus = segment_isu(make_acars_userdata("2", "NBURST", "!", "H1", "A",
+                                          "BURST ON CARD"), 0x333444, 0x41)
+    a = np.concatenate([np.zeros(30000, np.float32),
+                        msk_modulate(build_t_burst(0x333444, 0x41, sus,
+                                                   preamble_bits=96),
+                                     12000, 600, freq=3100.0, amplitude=0.3),
+                        np.zeros(40000, np.float32)])
+    path = tmp_path / "b.wav"
+    with wave.open(str(path), "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(12000)
+        f.writeframes(np.clip(a * 32767, -32767, 32767).astype("<i2")
+                      .tobytes())
+    records, launches = {}, {}
+    for dev in ("cpu", "cuda"):
+        vk.reset_launches()
+        assert decode_main.main(["-b", "600", "--burst", "--input-file",
+                                 str(path), "-s", "CARD", "--device",
+                                 dev]) == 0
+        launches[dev] = vk.LAUNCHES
+        records[dev] = [{k: v for k, v in json.loads(line).items()
+                         if k != "t"}
+                        for line in capsys.readouterr().out.splitlines()
+                        if line.startswith("{")]
+    assert records["cuda"] == records["cpu"] and len(records["cuda"]) == 1
+    assert records["cuda"][0]["isu"]["acars"]["reg"] == "NBURST"
+    assert launches["cuda"] > 0 and launches["cpu"] == 0

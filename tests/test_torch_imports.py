@@ -13,9 +13,10 @@
    (station accounting, the fused station's ``quantize`` / ``_drain`` /
    ``vfo_telemetry`` / ``vfo_spectrum``, the batched framer bank's
    ``feed`` / ``flush``, the burst wrapper's ``process``, the R/T framer
-   module) parse to the same syntax tree as the originals, up to the
-   listed substitutions.  A later fix to ``aero_tpu`` fails here until the
-   port takes it too.
+   module, the classic station's ``process``, the checkpoint's host-state
+   helpers, the single-VFO decoder's data path) parse to the same syntax
+   tree as the originals, up to the listed substitutions.  A later fix to
+   ``aero_tpu`` fails here until the port takes it too.
 """
 
 import ast
@@ -38,14 +39,20 @@ VERBATIM = ["protocol/crc.py", "protocol/scrambler.py",
             "protocol/isu.py", "protocol/acars.py", "protocol/su_dispatch.py",
             "protocol/database.py", "protocol/c_framing.py",
             "channelizer/config.py", "ops/design.py", "io/output.py",
-            "io/forwarder.py", "utils/signals.py"]
+            "io/forwarder.py", "utils/signals.py", "utils/logging.py",
+            "io/zmq_transport.py", "io/sdr.py", "runtime/hunter.py",
+            "protocol/bitio.py", "protocol/uper.py", "protocol/fans.py",
+            "protocol/cpdlc.py", "protocol/adsc.py",
+            "protocol/acars_apps.py"]
 
 NATIVE_SOURCES = ["native/ingest.cc", "native/viterbi.cc"]
 
 # files outside the package that run on the card's machine (no JAX there)
 CARD_SIDE = ["chip_smoke.py", "tools/torch_profile_step.py",
-             "tools/viterbi_time.py", "tests/torch_soft.py",
-             "tests/torch_station_bank.py", "tests/test_torch_cuda.py"]
+             "tools/viterbi_time.py", "tools/l54_burst_level.py",
+             "tests/torch_soft.py",
+             "tests/torch_station_bank.py", "tests/torch_lband54.py",
+             "tests/test_torch_cuda.py"]
 
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
@@ -62,8 +69,17 @@ names = [m.name for m in pkgutil.walk_packages(aero_tpu_torch.__path__,
 for n in names:
     importlib.import_module(n)
 assert not any(k.split(".")[0] in ("jax", "aero_tpu") for k in sys.modules)
-print(len(names))
+print(" ".join(names))
 """
+
+# modules the walk must reach (each subpackage, and the classic station's
+# and the single-VFO CLIs' modules)
+REQUIRED = {"aero_tpu_torch." + m for m in (
+    "parallel.vfo_bank", "channelizer.channelizer", "channelizer.pfb",
+    "runtime.station", "runtime.checkpoint", "runtime.hunter",
+    "runtime.decoder", "runtime.decode_main", "runtime.publish_main",
+    "runtime.station_main", "utils.profiling", "utils.logging",
+    "io.zmq_transport", "io.sdr", "ops.spectral", "protocol.acars_apps")}
 
 
 def _scanned_files():
@@ -79,7 +95,8 @@ def test_port_imports_with_jax_blocked():
     res = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT, ROOT],
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip().splitlines()[-1]) >= 25
+    names = set(res.stdout.strip().splitlines()[-1].split())
+    assert len(names) >= 40 and REQUIRED <= names, REQUIRED - names
 
 
 def test_port_import_boundary_is_static():
@@ -215,6 +232,32 @@ _SPECTRUM_SUBS = (
 )
 
 
+# the classic station's bank outputs are tensors on its device
+_STATION_SUBS = tuple(
+    (f'np.asarray(out["{k}"])', f'out["{k}"].cpu().numpy()')
+    for k in ("soft_bits", "signal", "slip"))
+
+# the classic checkpoint flattens with the port's jax-free tree_leaves
+_CLASSIC_SAVE_SUBS = (
+    ("jax.tree_util.tree_leaves(_classic_device_tree(st))",
+     "convert.tree_leaves(_classic_device_tree(st))"),)
+
+# host state of checkpoints, and the single-VFO decoder's data path
+_CHECKPOINT_FUNCS = ("_framer_state", "_restore_framer", "_rt_framer_state",
+                     "_restore_rt_framer", "_burst_demod_state",
+                     "_restore_burst_demod", "_save_topics", "_load_topics",
+                     "_load_stats", "_atomic_savez", "load_residual")
+_DECODER_METHODS = ("feed_audio", "_consume", "handle_acars", "close",
+                    "run_zmq", "run_file", "_make_framing")
+# its R/T framer decodes with the Viterbi kernel on the decoder's device
+_DECODER_SUBS = {"_make_framing": (
+    ("        from aero_tpu_torch.protocol.rt_framing import RTChannelFramer\n",
+     "        from aero_tpu_torch.ops.viterbi_kernel import stream_decoder\n"
+     "        from aero_tpu_torch.protocol.rt_framing import RTChannelFramer\n"),
+    ("            db=db)\n    elif",
+     "            db=db, decoder=stream_decoder(self.device))\n    elif"))}
+
+
 def _source(mod):
     return open(mod.__file__).read()
 
@@ -226,7 +269,20 @@ def _pairs():
     from aero_tpu_torch.runtime import station as ts, fused_station as tf
     from aero_tpu_torch.protocol import batch_framing as tb, rt_framing as tr
     from aero_tpu_torch.models import burst_common as tc
-    return {
+    from aero_tpu.runtime import checkpoint as jk, decoder as jd
+    from aero_tpu_torch.runtime import checkpoint as tk, decoder as td
+    pairs = {f"checkpoint.{n}": (getattr(jk, n), getattr(tk, n), ())
+             for n in _CHECKPOINT_FUNCS}
+    pairs["checkpoint.save_classic_checkpoint"] = (
+        jk.save_classic_checkpoint, tk.save_classic_checkpoint,
+        _CLASSIC_SAVE_SUBS)
+    pairs.update({f"decoder.{n}": (getattr(jd.Decoder, n),
+                                   getattr(td.Decoder, n),
+                                   _DECODER_SUBS.get(n, ()))
+                  for n in _DECODER_METHODS})
+    pairs["Station.process"] = (js.Station.process, ts.Station.process,
+                                _STATION_SUBS)
+    return pairs | {
         "StationStats": (js.StationStats, ts.StationStats, ()),
         "new_burst_stats": (js.new_burst_stats, ts.new_burst_stats, ()),
         "account_burst_outputs": (js.account_burst_outputs,
@@ -250,12 +306,13 @@ def _pairs():
     }
 
 
-@pytest.mark.parametrize("name", ["StationStats", "new_burst_stats",
-                                  "account_burst_outputs",
-                                  "account_framer_events", "quantize",
-                                  "_drain", "vfo_telemetry", "bank.feed",
-                                  "bank.flush", "vfo_spectrum",
-                                  "burst.process", "rt_framing"])
+@pytest.mark.parametrize("name", [
+    "StationStats", "new_burst_stats", "account_burst_outputs",
+    "account_framer_events", "quantize", "_drain", "vfo_telemetry",
+    "bank.feed", "bank.flush", "vfo_spectrum", "burst.process", "rt_framing",
+    "Station.process", "checkpoint.save_classic_checkpoint"]
+    + [f"checkpoint.{n}" for n in _CHECKPOINT_FUNCS]
+    + [f"decoder.{n}" for n in _DECODER_METHODS])
 def test_copied_code_matches_original(name):
     orig, port, subs = _pairs()[name]
     assert _tree(port) == _tree(orig, subs), (

@@ -28,6 +28,7 @@ expected messages with the same frames as JAX, and the 8400 round trips
 of tests/test_c_channel.py to the same voice frames as JAX.
 """
 
+import functools
 import json
 import os
 import wave
@@ -172,7 +173,7 @@ def test_fixture_10500_decodes_same_frames_as_jax():
     x = np.concatenate([pcm.astype(np.float32) / 32768.0,
                         np.zeros(32000, np.float32)])
     jouts = jo.OqpskDemodulator(fs, 10500).process(x)
-    touts = to.OqpskDemodulator(fs, 10500).process(x)
+    touts = to.OqpskDemodulator(fs, 10500, device="cpu").process(x)
     assert len(touts) == len(jouts) > 0
     jf, tf = JFramer(10500), TFramer(10500)
     jev, tev = [], []
@@ -212,7 +213,8 @@ def test_c_channel_round_trip_same_voice_as_jax(cfo, snr):
     x = np.concatenate([noisy, np.zeros(48000, np.float32)])
     res = []
     for demod, framer in ((jo.OqpskDemodulator, JCFramer),
-                          (to.OqpskDemodulator, TCFramer)):
+                          (functools.partial(to.OqpskDemodulator,
+                                             device="cpu"), TCFramer)):
         outs = demod(48000, 8400).process(x)
         soft = np.concatenate([o["soft_bits"] for o in outs]).astype(
             np.float32)

@@ -108,10 +108,10 @@ def test_cli_voice_out_same_bytes_as_jax(tmp_path, capsys):
     assert '"voice_frames": %d' % (len(got) // 300) in err
 
 
-@pytest.mark.parametrize("flag", [["--checkpoint", "x.npz"],
+@pytest.mark.parametrize("flag", [["--compile-cache", "cache"],
                                   ["--platform", "cpu"]])
 def test_cli_refuses_unported_flags(capture, flag):
-    """Flags of what is not ported are absent, not silently ignored."""
+    """The JAX-only flags are absent, not silently ignored."""
     ini, iq = capture
     with pytest.raises(SystemExit):
         torch_main.main(["-c", ini, "--iq-file", iq, "--device", "cpu"]
