@@ -11,13 +11,18 @@ written by the JAX ``FusedStation`` or classic ``Station`` resumes in the
 port's station of the same configuration, and the port's device and
 framer state loads into JAX's.
 
-The ISU/ACARS reassembly blobs are the exception: they pickle the
-reassembly objects of the package that wrote them.  The restricted
-unpickler here maps the (module, name) pairs of
-``aero_tpu.protocol.isu`` and ``aero_tpu_torch.protocol.isu`` onto the
-port's copies (it never imports the JAX package) and refuses any other
-class; blobs written by the port name the port's module, which the JAX
-package's unpickler refuses.
+The ISU/ACARS reassembly blobs pickle the reassembly objects.  The
+port's copy of ``aero_tpu/protocol/isu.py`` holds the same classes, so the
+port writes its blobs under the JAX package's module name (``_dumps``),
+which JAX's restricted unpickler accepts; the restricted unpickler here
+maps the (module, name) pairs of ``aero_tpu.protocol.isu`` and
+``aero_tpu_torch.protocol.isu`` onto the port's copies (it never imports
+the JAX package) and refuses any other class.
+
+A sharded station saves its whole state in this one layout (its
+``_state`` and its banks' ``states`` gather the shards), and a load
+re-shards onto the station's mesh, so a file crosses between sharded
+and unsharded stations of either package.
 
     st.save_checkpoint("station.ckpt")         # drains in-flight work
     st2 = FusedStation(same_cfg, ...)          # fresh process
@@ -30,6 +35,7 @@ from __future__ import annotations
 import io
 import os
 import pickle
+import pickletools
 
 import numpy as np
 
@@ -60,6 +66,24 @@ class _RestrictedUnpickler(pickle.Unpickler):
 
 def _restricted_loads(blob: bytes):
     return _RestrictedUnpickler(io.BytesIO(blob)).load()
+
+
+def _dumps(obj) -> np.ndarray:
+    """A reassembly blob that either package loads: pickle protocol 3 (its
+    GLOBAL opcodes name a class as text lines, and it has no frames whose
+    lengths a rename would break), with the port's isu module renamed to
+    the JAX package's."""
+    raw = pickle.dumps(obj, protocol=3)
+    ops = list(pickletools.genops(raw))
+    ends = [pos for _, _, pos in ops[1:]] + [len(raw)]
+    out = []
+    for (op, arg, pos), end in zip(ops, ends):
+        if op.name == "GLOBAL" and arg.startswith(_ISU_MODULES[1] + " "):
+            name = arg.split(" ")[1]
+            out.append(f"c{_ISU_MODULES[0]}\n{name}\n".encode())
+        else:
+            out.append(raw[pos:end])
+    return np.frombuffer(b"".join(out), np.uint8)
 
 
 # ---- per-component plain-array state (framers hold numpy scalars/arrays
@@ -145,15 +169,13 @@ def _save_topics(st, entries: dict, topics) -> None:
                 entries[f"fr{j}_{k}"] = v
             if t in st.dispatchers:
                 d = st.dispatchers[t]
-                entries[f"reasm{j}"] = np.frombuffer(
-                    pickle.dumps((d.isudata, d.parser.defrag)), np.uint8)
+                entries[f"reasm{j}"] = _dumps((d.isudata, d.parser.defrag))
         else:
             for k, v in _rt_framer_state(st.rt_framers[t]).items():
                 entries[f"rt{j}_{k}"] = v
             f = st.rt_framers[t]
-            entries[f"reasm{j}"] = np.frombuffer(
-                pickle.dumps((f.risudata, f.isudata, f.parser.defrag)),
-                np.uint8)
+            entries[f"reasm{j}"] = _dumps((f.risudata, f.isudata,
+                                           f.parser.defrag))
             for k, v in _burst_demod_state(st.burst_demods[t]).items():
                 entries[f"bd{j}_{k}"] = v
 

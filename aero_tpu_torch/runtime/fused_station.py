@@ -28,6 +28,10 @@ device.
 one packed [m, n] result is queued.  ``pipeline_depth``: d such results
 stay in flight (the device runs ahead of the host framing) before the host
 copies the oldest back.
+
+``shard(mesh)`` cuts every per-VFO carry over a device mesh
+(``parallel/mesh.py``); each shard then steps its rows on its device, and
+the shards' outputs are joined into the one packed buffer of JAX's layout.
 """
 
 from __future__ import annotations
@@ -50,6 +54,8 @@ from aero_tpu_torch.models.burst_msk import BurstMskDemodulator
 from aero_tpu_torch.models.burst_oqpsk import BurstOqpskDemodulator
 from aero_tpu_torch.ops.nco import cis, fused_mul_add
 from aero_tpu_torch.ops.viterbi_kernel import stream_decoder
+from aero_tpu_torch.parallel.mesh import (Mesh, gather, gather_tree,
+                                          replicate, shard_over_vfo)
 from aero_tpu_torch.protocol.c_framing import CChannelFramer
 from aero_tpu_torch.protocol.framing import PChannelFramer, apply_slip
 from aero_tpu_torch.protocol.rt_framing import RTChannelFramer
@@ -226,7 +232,9 @@ class FusedStation:
             self._tel_ofs[key] = tel_pos
             tel_pos += TEL_SLOTS * nb
         self._soft_total = soft_pos
+        self.mesh, self._axis = Mesh([self.device]), "vfo"
         self._state = self._init_state()
+        self._shard_params = [self._params]
         self.pipeline_depth = pipeline_depth if pipeline else 0
         self.blocks_per_step = max(1, int(blocks_per_step))
         self._inflight = deque()
@@ -331,10 +339,68 @@ class FusedStation:
                                   s2.grid_rate))
         return s2, {"tries": tries, "center": center}
 
+    def _split(self, tree) -> list:
+        """A whole-station state tree placed on the mesh, one tree per
+        shard: the filterbank carries replicated, the per-VFO carries
+        (demod, hunter, residual phase) cut by rows."""
+        grp = shard_over_vfo(self.mesh, tree["grp"], self._axis)
+        return [{"pfb": pfb, "grp": g} for pfb, g in
+                zip(replicate(self.mesh, tree["pfb"]), grp)]
+
+    def _join(self, shards) -> dict:
+        """Inverse of ``_split``, on the station's device."""
+        return {"pfb": {r: z.to(self.device)
+                        for r, z in shards[0]["pfb"].items()},
+                "grp": gather_tree(self.mesh, [s["grp"] for s in shards],
+                                   self._axis, self.device)}
+
+    @property
+    def _state(self):
+        """The device state as one tree, every row, on the station's
+        device (the layout ``convert`` maps to and from JAX's)."""
+        return self._join(self._shards)
+
+    @_state.setter
+    def _state(self, tree):
+        self._shards = self._split(tree)
+
     def _step(self, state, iq2, scale):
-        """One block on the device: (state, quantized block, scale) ->
-        (new state, packed uint8 buffer)."""
+        """One block: (state tree, quantized block, scale) -> (new state
+        tree, packed uint8 buffer), through the station's shards."""
+        new, packed = self._step_shards(self._split(state), iq2, scale)
+        return self._join(new), packed
+
+    def _step_shards(self, shards, iq2, scale):
+        """One block over the shards: each steps its rows on its device;
+        then each group's soft rows are joined in row order and its
+        telemetry rows joined before the slot-major stack, so the packed
+        buffer has the unsharded layout (JAX's).  One thread enqueues
+        every shard in turn, so N shards in a process cost about N times
+        the host launch time of a block's demod steps."""
+        new, parts = [], []
+        for sh, dev, params in zip(shards, self.mesh.devices,
+                                   self._shard_params):
+            n, p = self._shard_step(sh, iq2.to(dev), scale.to(dev), params)
+            new.append(n)
+            parts.append(p)
+        soft, tel = [], []
+        for key in self._order:
+            soft.append(gather(self.mesh, [p[key][0] for p in parts], 0,
+                               self._axis, self.device).reshape(-1))
+            tel.append(gather(self.mesh, [p[key][1] for p in parts], 1,
+                              self._axis, self.device).reshape(-1))
+        # ONE flat uint8 buffer: soft bits, then the float32 telemetry's
+        # bytes (little-endian on both x86 hosts and the card)
+        tb = torch.cat(tel).contiguous().view(torch.uint8)
+        return new, torch.cat(soft + [tb])
+
+    def _shard_step(self, state, iq2, scale, params):
+        """One shard's block on its device: (its state, quantized block,
+        scale, its rows' bins and residuals) -> (new state, {group key:
+        (soft or burst-audio bytes [rows, n], telemetry [TEL_SLOTS,
+        rows])})."""
         x = self._dequantize(iq2, scale)
+        dev = x.device
         new = {"pfb": {}, "grp": {}}
         z_by_rate = {}
         for out_rate, K in self._K.items():
@@ -343,11 +409,11 @@ class FusedStation:
                     else pfb_channelize)
             new["pfb"][out_rate], z_by_rate[out_rate] = chan(
                 state["pfb"][out_rate], x, K)
-        soft_parts, tel_parts = [], []
+        parts = {}
         for key in self._order:
             out_rate = key[0]
             mod, dcfg = self._group_cfg[key]
-            bins, resid = self._params[key]
+            bins, resid = params[key]
             gst = state["grp"][key]
             zb = z_by_rate[out_rate][bins]
             F = zb.shape[1]
@@ -355,7 +421,7 @@ class FusedStation:
             # block) rounded once, as JAX computes it on the CPU;
             # torch.remainder, never fmod — the residuals are negative for
             # VFOs above their bin centre
-            n = torch.arange(F, dtype=torch.float32, device=self.device)
+            n = torch.arange(F, dtype=torch.float32, device=dev)
             ramp = fused_mul_add(resid[:, None], n, gst["phase"][:, None])
             osc = cis((2.0 * math.pi) * torch.remainder(ramp, 1.0))
             audio = (zb * osc).real * self._gain
@@ -370,10 +436,8 @@ class FusedStation:
                 rms = torch.sqrt(torch.mean(audio * audio, dim=1))
                 peak = torch.amax(torch.abs(audio), dim=1)
                 zero = torch.zeros_like(rms)
-                soft_parts.append(a16.contiguous().view(torch.uint8
-                                                        ).reshape(-1))
-                tel_parts.append(torch.stack([rms, peak, zero, zero, zero]
-                                             ).reshape(-1))
+                parts[key] = (a16.contiguous().view(torch.uint8),
+                              torch.stack([rms, peak, zero, zero, zero]))
                 continue
 
             step = mod.msk_step if mod is _msk else mod.oqpsk_step
@@ -382,14 +446,10 @@ class FusedStation:
                 s2, ng["hunt"] = self._hunt_update(key, s2, out["signal"],
                                                    gst["hunt"])
             ng["demod"] = s2
-            soft_parts.append(out["soft_bits"].reshape(-1))
-            tel_parts.append(torch.stack(
+            parts[key] = (out["soft_bits"], torch.stack(
                 [out["signal"].to(torch.float32), out["mse"], out["ebno"],
-                 s2.freq, out["slip"].to(torch.float32)]).reshape(-1))
-        # ONE flat uint8 buffer: soft bits, then the float32 telemetry's
-        # bytes (little-endian on both x86 hosts and the card)
-        tb = torch.cat(tel_parts).contiguous().view(torch.uint8)
-        return new, torch.cat(soft_parts + [tb])
+                 s2.freq, out["slip"].to(torch.float32)]))
+        return new, parts
 
     # ---- host driver ----
 
@@ -466,9 +526,43 @@ class FusedStation:
         self._pending = []
         rows = []
         for i in range(iqs.shape[0]):
-            self._state, packed = self._step(self._state, iqs[i], scales[i])
+            self._shards, packed = self._step_shards(self._shards, iqs[i],
+                                                     scales[i])
             rows.append(packed)
         self._inflight.append(torch.stack(rows))
+
+    def shard(self, mesh, axis_name: str = "vfo"):
+        """Cut the per-VFO banks over one mesh axis (``parallel/mesh.py``;
+        JAX's ``FusedStation.shard``).  Per-VFO carries (demod, hunter
+        scan state, residual phases, burst groups' phases) and each
+        group's bins and residuals are cut by rows; the wideband
+        filterbank carries are replicated, so every shard runs the
+        filterbank on the whole block, as XLA partitions the JAX step.
+        Every group's VFO count must divide the axis (ValueError).  The
+        batched P framers (and with them the Viterbi kernel), the burst
+        watchers and the packed buffer stay on the station's device.
+        Call after construction or after ``load_checkpoint``; returns
+        self."""
+        n_axis = mesh.shape[axis_name]
+        for key, idxs in self.groups.items():
+            if len(idxs) % n_axis:
+                raise ValueError(
+                    f"group {key}: {len(idxs)} VFOs not divisible by "
+                    f"mesh axis {axis_name!r} of size {n_axis}")
+        state = self._state
+        self.mesh, self._axis = mesh, axis_name
+        self._state = state
+        self._shard_params = shard_over_vfo(mesh, self._params, axis_name)
+        return self
+
+    def _shard_row(self, key, row: int):
+        """(shard index, row in that shard) of a group's row."""
+        for i, (lo, hi) in enumerate(self.mesh.rows(len(self.groups[key]),
+                                                    self._axis)):
+            if lo <= row < hi:
+                return i, row - lo
+        raise LookupError(f"row {row} of group {key} is held by another "
+                          "process")
 
     def flush(self):
         """Drain pending and in-flight blocks (call at end of stream)."""
@@ -549,7 +643,8 @@ class FusedStation:
             if key[2] or topic not in self.topics[key]:
                 continue
             row = self.topics[key].index(topic)
-            st = self._state["grp"][key]["demod"]
+            shard, row = self._shard_row(key, row)
+            st = self._shards[shard]["grp"][key]["demod"]
             _, dcfg = self._group_cfg[key]
             coarse = st.coarse_y[row].cpu().numpy()
             return spectrum_display(coarse, dcfg.fs, nbins)

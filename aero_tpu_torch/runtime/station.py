@@ -5,7 +5,7 @@ Counterpart of ``aero_tpu/runtime/station.py``, the classic station:
     wideband IQ blocks
       -> Channelizer (batched mix + halfband cascades) or PfbChannelizer
       -> MskVfoBank / OqpskVfoBank: every same-rate VFO demodulated as one
-         batched step on the station's device
+         batched step, its rows sharded over the banks' mesh
       -> per-VFO host deframers and signal hunters -> SU dispatch -> ACARS
 
 plus burst (R/T) watchers: host window demodulators whose detection
@@ -107,9 +107,15 @@ def account_framer_events(stats: StationStats, data_rate: int, evs,
 
 
 class Station:
-    """Host driver for the full chain, on ``device``."""
+    """The full chain's host side, on ``device``.
 
-    def __init__(self, cfg: ChannelizerConfig, on_acars=None,
+    ``mesh``: the demod banks' mesh (``parallel/mesh.py``); None gives
+    each bank ``VfoBank``'s default for ``device``: with ``"cuda"`` every
+    visible card that divides the bank, as JAX shards over every device.
+    The channelizer, the burst watchers and their decodes stay on
+    ``device``."""
+
+    def __init__(self, cfg: ChannelizerConfig, on_acars=None, mesh=None,
                  station_id: str = "AERO-TPU", backend: str = "tree",
                  on_voice=None, aircraft_db=None, hunt: bool = True,
                  hunt_max_tries: int = 15, device="cuda"):
@@ -160,7 +166,8 @@ class Station:
             out_rate, data_rate = key
             bank_cls = MskVfoBank if data_rate in (600, 1200) else OqpskVfoBank
             self.banks[key] = bank_cls(len(idxs), float(out_rate),
-                                       float(data_rate), device=self.device)
+                                       float(data_rate), mesh=mesh,
+                                       device=self.device)
             for i in idxs:
                 topic = cfg.subs[i].topic
                 if hunt:

@@ -72,6 +72,21 @@ Phases (any failure raises and the script exits non-zero):
 9. ``station_main --backend pfb`` (the classic station on the polyphase
    filterbank) on the phase 3 capture and bank: every planted message on
    its VFO, no bad SU there.
+10. Multi-device (``aero_tpu_torch.parallel``) on a mesh whose shards are
+    dealt over the visible cards (on one card, every shard on cuda:0;
+    the script prints which): the three time-shard functions against
+    their unsharded pass on one L-band block (within 1e-5 of the peak);
+    phase 3 again with the station sharded over two shards
+    (``FusedStation.shard`` before the first block): phase 3's ACARS, its
+    R packet, the Viterbi kernel launched, and the per-block time and
+    device idle share of both stations on the same warm blocks; the
+    sharded station's checkpoint loaded unsharded and re-sharded, the
+    next block's telemetry against it; ``Station(mesh=...)`` with three
+    shards on the phase 7 capture: phase 7's ACARS and R packet, and
+    phase 7's stage times.
+11. Two ``python -m aero_tpu_torch.parallel.selftest`` processes of two
+    shards each (NCCL, a card per process, with two or more cards; else
+    gloo, both on cuda:0): every ``MH-*-OK`` line of both.
 
 The last two lines of standard output are the kernels' JSON record and the
 result line ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -86,6 +101,7 @@ import io
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -95,9 +111,17 @@ import numpy as np
 import torch
 
 from aero_tpu_torch import convert, native
+from aero_tpu_torch.channelizer import load_ini
+from aero_tpu_torch.channelizer.pfb import pfb_channelize
 from aero_tpu_torch.device import set_fp32_precision
 from aero_tpu_torch.models.msk import msk_modulate
 from aero_tpu_torch.ops import viterbi_kernel as vk
+from aero_tpu_torch.ops.design import HALFBAND_TAPS
+from aero_tpu_torch.ops.fir import fir_apply, fir_decimate_apply, fir_init
+from aero_tpu_torch.parallel.mesh import Mesh, gather, shard_over_vfo
+from aero_tpu_torch.parallel.time_shard import (
+    halo_decimate_time_sharded, halo_filter_time_sharded,
+    pfb_channelize_time_sharded)
 from aero_tpu_torch.protocol.crc import append_crc16_bytes
 from aero_tpu_torch.protocol.framing import build_p_frames
 from aero_tpu_torch.protocol.isu import make_acars_userdata, segment_isu
@@ -312,14 +336,17 @@ def make_wideband(block_len: int, n_blocks: int,
     return wide
 
 
-def run_station_main(argv, box, heard, su, err=None):
+def run_station_main(argv, box, heard, su, err=None, prepare=None):
     """Run station_main.main in-process with the station instrumented:
     ``box`` gets the station and the R/T framers' launch counter,
     ``heard`` every (topic, ACARS text), ``su`` [ok, bad] SU counts of the
-    given P topics; ``err``, a list, gets the lines written to stderr.
-    Returns (jsondump records on stdout, kernel launches over the
-    run)."""
+    given P topics; ``err``, a list, gets the lines written to stderr;
+    ``prepare(station)`` runs first, before any block (phase 10 shards
+    the station there).  Returns (jsondump records on stdout, kernel
+    launches over the run)."""
     def on_station(st):
+        if prepare is not None:
+            prepare(st)
         box["st"] = st
         box["rt"] = count_rt_launches(st)
         emit = st.on_acars
@@ -553,17 +580,15 @@ def phase_cband(card: str, workdir: str) -> dict:
             "layout": layout, "content": content}
 
 
-def stage_times(st, wide, card: str, label: str) -> None:
+def stage_times(st, wide, card: str, label: str) -> dict:
     """Where a warm station's block goes, on the blocks of ``wide``.
 
     Serially per block, on the host clock: quantize, device step (upload
     and one step, up to a synchronize) and drain (the packed buffer's copy
-    back, host framing, burst windows and decodes).  Then ``_step`` alone
-    on the last block: host enqueue and CUDA-event device time per step
-    over 10 steps, and under torch.profiler over 3 steps the device
-    operations per step, their summed device time and the device's idle
-    share of the step.  The station's sinks are silenced first (the run
-    that fed them is over)."""
+    back, host framing, burst windows and decodes).  Then the step alone
+    on the last block (``step_times``).  The station's sinks are silenced
+    first (the run that fed them is over).  Returns the medians and the
+    step's figures."""
     st.flush()
     st.on_acars = lambda *a: None
     st.on_voice = lambda *a: None
@@ -585,9 +610,20 @@ def stage_times(st, wide, card: str, label: str) -> None:
         "blocks, serial: " + ", ".join(
             f"{k} {float(np.median(v)):.3f} ms" for k, v in times.items())
         + f" ({card})")
-    iq = torch.from_numpy(q[0] if isinstance(q, tuple) else q).cuda()
-    scale = torch.tensor(np.float32(1.0), device="cuda")
-    state = st._state
+    out = {k: float(np.median(v)) for k, v in times.items()}
+    out.update(step_times(st, q, card, label))
+    return out
+
+
+def step_times(st, q, card: str, label: str) -> dict:
+    """One block's device step alone, through the station's shards, on a
+    quantized block ``q``: host enqueue and CUDA-event device time per
+    step over 10 steps, and under torch.profiler over 3 steps the device
+    operations per step, their summed device time and the device's idle
+    share of the step."""
+    iq = torch.from_numpy(q[0] if isinstance(q, tuple) else q).to(st.device)
+    scale = torch.tensor(np.float32(1.0), device=st.device)
+    shards = st._shards
     ev0 = torch.cuda.Event(enable_timing=True)
     ev1 = torch.cuda.Event(enable_timing=True)
     n = 10
@@ -595,7 +631,7 @@ def stage_times(st, wide, card: str, label: str) -> None:
     t0 = time.perf_counter()
     ev0.record()
     for _ in range(n):
-        st._step(state, iq, scale)
+        st._step_shards(shards, iq, scale)
     ev1.record()
     enqueue_ms = 1e3 * (time.perf_counter() - t0) / n
     torch.cuda.synchronize()
@@ -605,20 +641,22 @@ def stage_times(st, wide, card: str, label: str) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            st._step(state, iq, scale)
+            st._step_shards(shards, iq, scale)
         torch.cuda.synchronize()
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / n
+    idle = 100 * (1 - busy_ms / step_ms)
     log(f"{label} step alone: host enqueue {enqueue_ms:.3f} ms, device "
         f"(CUDA events) {step_ms:.3f} ms per step; profiler: "
         f"{len(dev) / n:.1f} device operations, {busy_ms:.3f} ms of device "
-        f"time per step, device idle {100 * (1 - busy_ms / step_ms):.1f}% "
-        f"({card})")
+        f"time per step, device idle {idle:.1f}% ({card})")
     top = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
     log(f"{label} step, largest device times per step: " + ", ".join(
         f"{e.key} {e.self_device_time_total / 1e3 / n:.3f} ms"
         for e in top[:6]))
+    return {"enqueue_ms": enqueue_ms, "step_ms": step_ms,
+            "device_ops": len(dev) / n, "busy_ms": busy_ms, "idle": idle}
 
 
 # ---- phase 7 ---------------------------------------------------------------
@@ -673,7 +711,7 @@ def phase_classic(card: str, workdir: str) -> dict:
             "heard": heard}
 
 
-def classic_stage_times(st, wide, card: str) -> None:
+def classic_stage_times(st, wide, card: str, label: str = "classic") -> None:
     """Where a warm classic station's block goes, over the blocks of
     ``wide`` fed serially: the channelizer (its int16 payloads copied to
     the host), the demod banks (one step, up to a synchronize) and the
@@ -710,7 +748,7 @@ def classic_stage_times(st, wide, card: str) -> None:
         st.process(wide[b * L:(b + 1) * L])
     total = time.perf_counter() - t0
     host = total - spent["channelizer"] - spent["banks"]
-    log(f"classic block of {L} samples, mean of {n} warm blocks, serial: "
+    log(f"{label} block of {L} samples, mean of {n} warm blocks, serial: "
         f"channelizer {1e3 * spent['channelizer'] / n:.3f} ms, banks "
         f"{1e3 * spent['banks'] / n:.3f} ms, host framing and burst "
         f"watchers {1e3 * host / n:.3f} ms, total {1e3 * total / n:.3f} ms "
@@ -731,7 +769,7 @@ def classic_stage_times(st, wide, card: str) -> None:
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / k
-    log(f"classic block under the profiler: {len(dev) / k:.1f} device "
+    log(f"{label} block under the profiler: {len(dev) / k:.1f} device "
         f"operations, {busy_ms:.3f} ms of device time per block of "
         f"{wall_ms:.3f} ms, device idle {100 * (1 - busy_ms / wall_ms):.1f}% "
         f"({card})")
@@ -893,6 +931,244 @@ def phase_pfb(card: str, lband: dict) -> dict:
     return {"launches": launches}
 
 
+# ---- phase 10 --------------------------------------------------------------
+
+def card_mesh(n: int, axis: str = "vfo") -> Mesh:
+    """A mesh of n shards dealt over the visible cards in turn: n shards
+    of cuda:0 on a one-card machine."""
+    count = torch.cuda.device_count()
+    return Mesh([torch.device("cuda", i % count) for i in range(n)], (axis,))
+
+
+def _shards_text(mesh: Mesh) -> str:
+    return (f"{len(mesh.devices)} shards on "
+            + ", ".join(str(d) for d in mesh.devices))
+
+
+def phase_time_shards(card: str, block_len: int) -> None:
+    """The three time-shard functions on a mesh of two shards against the
+    unsharded pass on the card, on one L-band block of complex noise: the
+    halfband FIR (23 taps), the halfband decimator (11 taps, by 2) and the
+    WOLA filterbank (K=128) from a random carry.  On the CPU they are
+    bit-identical; here cuDNN and cuFFT may pick another algorithm for a
+    shorter input, so the largest difference must stay within 1e-5 of
+    the output's peak."""
+    mesh = card_mesh(2, "time")
+    log(f"time mesh: {_shards_text(mesh)}")
+    rng = np.random.default_rng(3)
+
+    def noise(n):
+        return torch.from_numpy((0.1 * (rng.standard_normal(n) + 1j
+                                        * rng.standard_normal(n))
+                                 ).astype(np.complex64)).cuda()
+    x = noise(block_len)
+    xs = shard_over_vfo(mesh, x, "time")
+    K = 128
+    carry = noise(8 * K - K // 2)
+    h23, h11 = HALFBAND_TAPS[23], HALFBAND_TAPS[11]
+    fir = halo_filter_time_sharded(mesh, h23)
+    dec = halo_decimate_time_sharded(mesh, h11, 2)
+    pfb = pfb_channelize_time_sharded(mesh, K)
+    cases = {
+        "halo FIR, 23 taps": (
+            lambda: fir(xs), 0, lambda: fir_apply(
+                fir_init(len(h23), dtype=x.dtype, device=x.device), x,
+                h23)[1]),
+        "halo decimator, 11 taps by 2": (
+            lambda: dec(xs), 0, lambda: fir_decimate_apply(
+                fir_init(len(h11), dtype=x.dtype, device=x.device), x, h11,
+                2)[1]),
+        f"WOLA filterbank, K={K}": (
+            lambda: pfb(carry, xs), 1,
+            lambda: pfb_channelize(carry, x, K)[1]),
+    }
+    for name, (sharded, dim, plain) in cases.items():
+        got = gather(mesh, sharded(), dim, "time")
+        want = plain()
+        err = float((got - want).abs().max())
+        peak = float(want.abs().max())
+        ms, plain_ms = call_ms(sharded, 20), call_ms(plain, 20)
+        log(f"time-sharded {name}: {block_len} samples, max |sharded - "
+            f"unsharded| = {err:.3g} (limit {1e-5 * peak:.3g}, 1e-5 of "
+            f"the peak), bit-identical {torch.equal(got, want)}; "
+            f"{ms:.3f} ms sharded, {plain_ms:.3f} ms unsharded per call "
+            f"({card})")
+        if err > 1e-5 * peak:
+            raise AssertionError(f"time-sharded {name} differs by {err}")
+
+
+def phase_sharded_fused(card: str, lband: dict) -> dict:
+    """Phase 3 again with the station sharded over two shards before its
+    first block (``FusedStation.shard`` in station_main's station hook):
+    phase 3's ACARS on each VFO, no bad SU on the content VFOs, the R
+    packet, the Viterbi kernel launched; then the per-block time and the
+    device idle share of phase 3's station and of this one, on the same
+    warm blocks."""
+    mesh = card_mesh(2)
+    log(f"vfo mesh of the sharded L-band bank: {_shards_text(mesh)}")
+    box, heard = {}, []
+    su = {f"V{v}": [0, 0] for v in CONTENT}
+    argv = ["-c", lband["ini"], "--iq-file", lband["iq"], "--backend",
+            "fused", "--batch-framing", "--device", "cuda",
+            "--ingest-dtype", "int4", "--format", "jsondump",
+            "-s", "CHIP-SMOKE", "--stats-every", "1e9"]
+    _, launches = run_station_main(argv, box, heard, su,
+                                   prepare=lambda st: st.shard(mesh))
+    st, rt = box["st"], box["rt"][0]
+    if _by_topic(heard) != _by_topic(lband["heard"]):
+        raise AssertionError("sharded L-band: the messages differ from "
+                             "phase 3's")
+    for topic, (ok, bad) in su.items():
+        if bad != 0 or ok == 0:
+            raise AssertionError(f"sharded {topic}: su_ok {ok}, su_bad {bad}")
+    if not any(e.kind == "R" and e.infofield[:17] == R_INFO
+               for e in st.rt_framers[f"R{R_PLANTED}"].events):
+        raise AssertionError("sharded L-band: the R packet is missing")
+    if launches - rt <= 0 or rt <= 0:
+        raise AssertionError(f"sharded L-band: kernel launches P bank "
+                             f"{launches - rt}, R/T framers {rt}")
+    devs = {(t.device.type, t.device.index) for s in st._shards
+            for t in _state_tensors(s)}
+    if len(st._shards) != 2 or {d for d, _ in devs} != {"cuda"}:
+        raise AssertionError(f"sharded L-band: {len(st._shards)} shards "
+                             f"on {devs}")
+    log(f"sharded L-band path: {len(heard)} ACARS (phase 3's, per VFO in "
+        f"order), frames {st.stats.frames}, su_ok {st.stats.su_ok}, su_bad "
+        f"{st.stats.su_bad}, kernel launches {launches} (P bank "
+        f"{launches - rt}, R/T framers {rt}), realtime factor "
+        f"{st.stats.realtime_factor / FS:.2f}x ({card})")
+    wide = make_wideband(st.block_len, 4, seed=9)
+    ref = stage_times(lband["station"], wide, card, "L-band unsharded")
+    got = stage_times(st, wide, card, "L-band sharded")
+    log(f"L-band block, unsharded vs {len(mesh.devices)} shards: device "
+        f"step {ref['device step']:.3f} vs {got['device step']:.3f} ms, "
+        f"step alone {ref['step_ms']:.3f} vs {got['step_ms']:.3f} ms "
+        f"(host enqueue {ref['enqueue_ms']:.3f} vs {got['enqueue_ms']:.3f} "
+        f"ms), device operations {ref['device_ops']:.1f} vs "
+        f"{got['device_ops']:.1f}, device idle {ref['idle']:.1f}% vs "
+        f"{got['idle']:.1f}% ({card})")
+    return {"station": st, "mesh": mesh, "launches": launches, "rt": rt}
+
+
+def phase_sharded_checkpoint(card: str, workdir: str, sharded: dict) -> None:
+    """The sharded station saves (its shards gathered into the one file
+    layout); a station that loads the file unsharded, and one that loads
+    it and shards the same way, step the next block beside the saved
+    station: the re-sharded one's telemetry equal to it, the unsharded
+    one's within 1e-4 (its batches are twice as large)."""
+    st, mesh = sharded["station"], sharded["mesh"]
+    path = os.path.join(workdir, "sharded.ckpt")
+    st.save_checkpoint(path)
+
+    def loaded():
+        s = FusedStation(st.cfg, ingest_dtype="int4",
+                         batch_host_framing=True, device="cuda")
+        s.load_checkpoint(path)
+        return s
+    plain = loaded()
+    again = loaded().shard(mesh)
+    block = st.quantize(make_wideband(st.block_len, 1, seed=10))
+    for s in (st, plain, again):
+        s.process(block)
+        s.flush()
+    if not np.array_equal(again.telemetry, st.telemetry):
+        raise AssertionError("re-sharded resume: telemetry differs")
+    err = float(np.abs(plain.telemetry - st.telemetry).max())
+    if not np.allclose(plain.telemetry, st.telemetry, rtol=1e-4, atol=1e-4):
+        raise AssertionError(f"unsharded resume: telemetry differs by {err}")
+    log(f"sharded checkpoint ({os.path.getsize(path)} bytes): loaded and "
+        f"re-sharded, the next block's telemetry is equal; loaded "
+        f"unsharded, max |difference| {err:.3g} (bit-identical "
+        f"{np.array_equal(plain.telemetry, st.telemetry)}) ({card})")
+
+
+def phase_sharded_classic(card: str, classic: dict) -> dict:
+    """``Station(mesh=...)`` on phase 7's 54W capture: three shards, the
+    smallest count above one that divides both of its banks (3 subs at
+    600 bps, 21 at 1200); phase 7's ACARS on each VFO and its R packet;
+    then phase 7's stage times on this station."""
+    mesh = card_mesh(3)
+    heard = []
+    st = Station(load_ini(l54.INI_PATH), mesh=mesh, device="cuda",
+                 station_id="CHIP-SMOKE",
+                 on_acars=lambda t, it: heard.append((t, it.message)))
+    rt = count_rt_launches(st)
+    wide = np.fromfile(classic["paths"]["w"], np.complex64)
+    L = st.cfg.buflen_complex
+    vk.reset_launches()
+    t0 = time.perf_counter()
+    for b in range(len(wide) // L):
+        st.process(wide[b * L:(b + 1) * L])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = vk.LAUNCHES
+    if _by_topic(heard) != _by_topic(classic["heard"]):
+        raise AssertionError("sharded classic: the messages differ from "
+                             "phase 7's")
+    if not any(e.kind == "R" and e.infofield[:17] == l54.R_INFO
+               for e in st.rt_framers[l54.R_TOPIC].events):
+        raise AssertionError("sharded classic: the R packet is missing")
+    if any(len(b._shards) != 3 for b in st.banks.values()) or rt[0] <= 0:
+        raise AssertionError(f"sharded classic: shards or R/T launches "
+                             f"{rt[0]}")
+    devs = {t.device.type for t in _state_tensors(st.device_state())}
+    if devs != {"cuda"}:
+        raise AssertionError(f"sharded classic station state on {devs}")
+    log(f"sharded classic path ({_shards_text(mesh)}): {len(heard)} ACARS "
+        f"(phase 7's, per VFO in order), frames {st.stats.frames}, su_ok "
+        f"{st.stats.su_ok}, su_bad {st.stats.su_bad}; {len(wide) // L} "
+        f"blocks in {wall:.2f} s of host wall clock (first-block set-up "
+        f"included), {1e3 * wall / (len(wide) // L):.3f} ms per block, "
+        f"kernel launches {launches} (R/T framers {rt[0]}) ({card})")
+    classic_stage_times(st, wide[: 12 * l54.BLOCK], card, "sharded classic")
+    return {"launches": launches}
+
+
+# ---- phase 11 --------------------------------------------------------------
+
+SELFTEST_STAGES = ("SELFTEST", "PFBTIME", "VFOBANK", "FUSEDSTATION")
+
+
+def phase_selftest(card: str) -> None:
+    """Two ``aero_tpu_torch.parallel.selftest`` processes on the card(s),
+    each with two shards: NCCL with a card per process where two or more
+    are visible, else gloo with both processes on cuda:0.  Every
+    ``MH-*-OK`` line of both must appear."""
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "aero_tpu_torch.parallel.selftest",
+         "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+         "--process-id", str(i), "--shards-per-process", "2",
+         "--device", "cuda", "--backend", backend],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env, cwd=ROOT) for i in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            if line.startswith("MH-"):
+                log(f"{line} ({backend}; {card})")
+        if p.returncode != 0 or any(f"MH-{stage}-OK proc={i}" not in out
+                                    for stage in SELFTEST_STAGES):
+            raise AssertionError(f"selftest process {i} (rc {p.returncode}):"
+                                 f"\n{out[-3000:]}")
+    if backend == "gloo":
+        log("MH-SCALING: both processes share cuda:0, so its efficiency is "
+            "no scaling figure")
+
+
 def main() -> int:
     card = phase_environment()
     kern = phase_kernel(card)
@@ -930,15 +1206,27 @@ def main() -> int:
         t0 = time.perf_counter()
         pfb = phase_pfb(card, lband)
         log(f"phase 9: {time.perf_counter() - t0:.1f} s ({card})")
+        t0 = time.perf_counter()
+        phase_time_shards(card, lband["block_len"])
+        sharded = phase_sharded_fused(card, lband)
+        phase_sharded_checkpoint(card, tmp, sharded)
+        sclassic = phase_sharded_classic(card, classic)
+        log(f"phase 10: {time.perf_counter() - t0:.1f} s ({card})")
+        t0 = time.perf_counter()
+        phase_selftest(card)
+        log(f"phase 11: {time.perf_counter() - t0:.1f} s ({card})")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches = (lband["launches"] + cband["launches"] + classic["launches"]
-                + pfb["launches"])
+                + pfb["launches"] + sharded["launches"]
+                + sclassic["launches"])
     log(f"kernel launches on the main paths: {launches} (L-band "
         f"{lband['launches']}, C-band P bank "
         f"{cband['launches'] - cband['rt']}, C-band R/T framers "
         f"{cband['rt']}, classic 54W R/T framers {classic['rt']}, pfb "
-        f"{pfb['launches']})")
+        f"{pfb['launches']}, sharded L-band {sharded['launches']} (P bank "
+        f"{sharded['launches'] - sharded['rt']}, R/T framers "
+        f"{sharded['rt']}), sharded classic 54W {sclassic['launches']})")
     ms, dev_ms, plain_ms, bound_ms, bound_by = kern["timing"][(64, 631)]
     print(json.dumps({"kernels": [{
         "name": "viterbi_decode_soft_cuda",

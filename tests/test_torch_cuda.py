@@ -20,7 +20,13 @@ CUDA device is present.  On the card, from the repository root (the
   same state, within the limits of ``check_packed``;
 - the classic station (tree and filterbank backends) decodes the same
   ACARS on the card as on the CPU, and ``decode_main`` on a burst capture
-  prints the same records on both, its R/T decodes through the kernel.
+  prints the same records on both, its R/T decodes through the kernel;
+- sharded over a mesh of two shards (two cards, or two shards of
+  ``cuda:0`` on a one-card machine), the fused station with batch framing
+  and the classic station decode the same ACARS on the card as the same
+  station unsharded there, the fused one through the kernel, and a
+  sharded fused step agrees with the unsharded one within the limits of
+  ``check_packed``.
 
 ``check_packed`` and the C-band bank builders below are shared with
 tests/test_torch_mixed.py and chip_smoke.py (this file imports no JAX, so
@@ -380,3 +386,82 @@ def test_decode_main_burst_on_card_matches_cpu(cuda, tmp_path, capsys):
     assert records["cuda"] == records["cpu"] and len(records["cuda"]) == 1
     assert records["cuda"][0]["isu"]["acars"]["reg"] == "NBURST"
     assert launches["cuda"] > 0 and launches["cpu"] == 0
+
+
+def _card_mesh():
+    """Two shards: the first two cards, or two shards of cuda:0 on a
+    one-card machine."""
+    from aero_tpu_torch.parallel.mesh import make_mesh
+    if torch.cuda.device_count() >= 2:
+        return make_mesh(2)
+    return make_mesh(2, device="cuda:0")
+
+
+def _even_bank_ini():
+    """tests/torch_station_bank.py's bank with a second 600 bps VFO, so a
+    mesh of two shards divides both rate groups."""
+    from torch_station_bank import CENTER, INI
+    return (INI.replace("size=3", "size=4")
+            + f"4\\frequency={CENTER - 61000}\n4\\data_rate=600\n"
+              "4\\topic=W\n")
+
+
+def test_sharded_fused_station_on_card_matches_unsharded(cuda):
+    from aero_tpu_torch import convert
+    from aero_tpu_torch.channelizer import load_ini
+    from aero_tpu_torch.runtime.fused_station import FusedStation
+    from torch_station_bank import make_wideband
+
+    cfg = load_ini(_even_bank_ini(), is_text=True)
+    wb = make_wideband()
+    results, stations = {}, {}
+    for name in ("unsharded", "sharded"):
+        got = []
+        st = FusedStation(cfg, ingest_dtype="int4", batch_host_framing=True,
+                          device=cuda,
+                          on_acars=lambda v, it: got.append((v, it.message)))
+        if name == "sharded":
+            st.shard(_card_mesh())
+            assert len(st._shards) == 2
+        w = np.concatenate([wb, np.zeros(2 * st.block_len, np.complex64)])
+        vk.reset_launches()
+        for i in range(0, len(w) - st.block_len + 1, st.block_len):
+            st.process(w[i:i + st.block_len])
+        st.flush()
+        results[name] = (sorted(set(got)), st.stats.frames, st.stats.su_ok,
+                         st.stats.su_bad)
+        assert vk.LAUNCHES > 0
+        stations[name] = st
+    assert ("X", "BATCH XX") in results["sharded"][0]
+    assert results["sharded"] == results["unsharded"]
+    full, shard = stations["unsharded"], stations["sharded"]
+    assert all(t.device.type == cuda.type for s in shard._shards
+               for t in convert.tree_leaves(s))
+    arr = full.quantize(wb[: full.block_len])
+    one = torch.tensor(np.float32(1.0), device=cuda)
+    iq = torch.from_numpy(arr).to(cuda)
+    _, a = full._step(full._state, iq, one)
+    _, b = shard._step_shards(shard._shards, iq, one)
+    check_packed(full, b.cpu().numpy(), a.cpu().numpy())
+
+
+def test_sharded_classic_station_on_card_matches_unsharded(cuda):
+    from aero_tpu_torch.channelizer import load_ini
+    from aero_tpu_torch.runtime.station import Station
+    from torch_station_bank import make_wideband
+
+    cfg = load_ini(_even_bank_ini(), is_text=True)
+    B = cfg.buflen_complex
+    w = np.concatenate([make_wideband(), np.zeros(4 * B, np.complex64)])
+    results = {}
+    for mesh in (None, _card_mesh()):
+        got = []
+        st = Station(cfg, device=cuda, mesh=mesh,
+                     on_acars=lambda v, it: got.append((v, it.message)))
+        for i in range(0, len(w) - B + 1, B):
+            st.process(w[i:i + B])
+        results[mesh is None] = (sorted(set(got)), st.stats.frames,
+                                 st.stats.su_ok, st.stats.su_bad)
+    assert all(len(b._shards) == 2 for b in st.banks.values())
+    assert ("X", "BATCH XX") in results[False][0]
+    assert results[False] == results[True]

@@ -79,7 +79,9 @@ REQUIRED = {"aero_tpu_torch." + m for m in (
     "runtime.station", "runtime.checkpoint", "runtime.hunter",
     "runtime.decoder", "runtime.decode_main", "runtime.publish_main",
     "runtime.station_main", "utils.profiling", "utils.logging",
-    "io.zmq_transport", "io.sdr", "ops.spectral", "protocol.acars_apps")}
+    "io.zmq_transport", "io.sdr", "ops.spectral", "protocol.acars_apps",
+    "parallel.mesh", "parallel.time_shard", "parallel.multihost",
+    "parallel.selftest", "parallel.dryrun")}
 
 
 def _scanned_files():
@@ -223,11 +225,13 @@ _PROCESS_SUBS = (
     ('np.asarray(out["active"])', '_host(out["active"])'),
 )
 
-# the port's station state holds tensors, not packed complex planes
+# the port's station state holds tensors, not packed complex planes, and
+# a row is read in the shard that holds it
 _SPECTRUM_SUBS = (
     ("    from aero_tpu_torch.ops.compat import tree_unpack\n", ""),
     ('st = tree_unpack(self._state["grp"][key]["demod"])',
-     'st = self._state["grp"][key]["demod"]'),
+     'shard, row = self._shard_row(key, row)\n'
+     '        st = self._shards[shard]["grp"][key]["demod"]'),
     ("np.asarray(st.coarse_y[row])", "st.coarse_y[row].cpu().numpy()"),
 )
 
@@ -241,6 +245,16 @@ _STATION_SUBS = tuple(
 _CLASSIC_SAVE_SUBS = (
     ("jax.tree_util.tree_leaves(_classic_device_tree(st))",
      "convert.tree_leaves(_classic_device_tree(st))"),)
+
+# the port pickles its reassembly blobs under the JAX package's module
+# name (runtime/checkpoint.py:_dumps), so that JAX loads them too
+_SAVE_TOPICS_SUBS = (
+    ("np.frombuffer(\n                    pickle.dumps((d.isudata, "
+     "d.parser.defrag)), np.uint8)", "_dumps((d.isudata, d.parser.defrag))"),
+    ("np.frombuffer(\n                pickle.dumps((f.risudata, f.isudata, "
+     "f.parser.defrag)),\n                np.uint8)",
+     "_dumps((f.risudata, f.isudata, f.parser.defrag))"),
+)
 
 # host state of checkpoints, and the single-VFO decoder's data path
 _CHECKPOINT_FUNCS = ("_framer_state", "_restore_framer", "_rt_framer_state",
@@ -273,6 +287,8 @@ def _pairs():
     from aero_tpu_torch.runtime import checkpoint as tk, decoder as td
     pairs = {f"checkpoint.{n}": (getattr(jk, n), getattr(tk, n), ())
              for n in _CHECKPOINT_FUNCS}
+    pairs["checkpoint._save_topics"] = (jk._save_topics, tk._save_topics,
+                                        _SAVE_TOPICS_SUBS)
     pairs["checkpoint.save_classic_checkpoint"] = (
         jk.save_classic_checkpoint, tk.save_classic_checkpoint,
         _CLASSIC_SAVE_SUBS)
