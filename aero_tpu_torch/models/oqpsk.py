@@ -311,6 +311,12 @@ class OqpskDemodulator:
             outs.append({k: v[0].cpu().numpy() for k, v in out.items()})
         return outs
 
+    def spectrum(self, nbins: int = 256):
+        """Smoothed fold-spectrum snapshot: (freqs_hz, dB)."""
+        from aero_tpu_torch.models.coarse_freq import spectrum_display
+        return spectrum_display(self.state.coarse_y[0].cpu().numpy(),
+                                self.cfg.fs, nbins)
+
 
 # ---------------------------------------------------------------------------
 # Modulator (numpy; for synthetic test vectors)

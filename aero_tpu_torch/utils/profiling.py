@@ -3,10 +3,10 @@
 
 ``RateMeter`` is the reference's as it is.  ``trace_to`` records the CPU
 and, where a card is present, the CUDA activity of the enclosed block and
-writes a Chrome trace.  The JAX package's ``enable_compile_cache`` (a
-persistent XLA compilation cache) has no counterpart: the port compiles
-no XLA programs, and its one CUDA kernel is built once per checkout into
-``build/aero_tpu_torch/``.
+writes a Chrome trace.  The JAX package's ``enable_compile_cache`` and
+the CLIs' ``--compile-cache`` have no counterpart: torch has no XLA
+compile cache, and the kernel's build directory ``build/aero_tpu_torch/``
+is the port's cache.
 """
 
 from __future__ import annotations

@@ -87,6 +87,22 @@ Phases (any failure raises and the script exits non-zero):
 11. Two ``python -m aero_tpu_torch.parallel.selftest`` processes of two
     shards each (NCCL, a card per process, with two or more cards; else
     gloo, both on cuda:0): every ``MH-*-OK`` line of both.
+12. The reference's envelopes free-running on the card, from
+    tests/torch_impair.py (JAX's streams, built on the port): the MSK
+    150 Hz/s ramp (61 s) and 500 ppm, the OQPSK 240 Hz/s ramp (62 s) and
+    +100 ppm, MSK under ramp, ppm and phase noise at once, burst R under
+    them, the FusedStation at 400 ppm and its C channel at 100 ppm, and
+    the classic Station at 400 ppm: one line each with the frames (or
+    messages) recovered, JAX's threshold (tests/test_impairments.py) and
+    the seconds; each must meet its threshold, every demodulator and
+    station must hold its state on the card.  Then the fused soak of
+    tests/test_soak.py (int16 ingest, batched host framing, the hunter,
+    a T burst, a checkpoint restore halfway): all three messages, the
+    hunted VFO within 200 Hz of 2500.  Then tools/torch_parity_check.py
+    --device cuda on the three fixtures of tests/fixtures: 100% on the
+    synthetic ones, >= 95% on the jaero drill.  The kernel's launches in
+    this phase (the R/T framers, the soak's batched framing) join the
+    kernels line's.
 
 The last two lines of standard output are the kernels' JSON record and the
 result line ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -138,7 +154,9 @@ from torch_soft import KERNEL_KINDS, soft_bytes  # noqa: E402
 from test_torch_cuda import (cband_ini, cband_layout,  # noqa: E402
                              cband_wideband, check_packed, content_vfos)
 from viterbi_time import MAIN_SHAPES, call_ms, device_ms  # noqa: E402
+import torch_impair as ti  # noqa: E402
 import torch_lband54 as l54  # noqa: E402
+import torch_parity_check as tpc  # noqa: E402
 
 FS = 1536000
 CENTER = 1545000000
@@ -1169,6 +1187,106 @@ def phase_selftest(card: str) -> None:
             "no scaling figure")
 
 
+# ---- phase 12 --------------------------------------------------------------
+
+# the impairment scenarios of tests/torch_impair.py run on the card, each
+# held to JAX's threshold (tests/test_impairments.py)
+CARD_ENVELOPES = ("msk_ramp_150", "msk_ppm_+500", "oqpsk_ramp_240",
+                  "oqpsk_ppm_+100", "msk_combined", "burst_r_combined",
+                  "fused_ppm_400", "fused_c_ppm_100", "classic_ppm_400")
+# fixture -> (bit rate, least parity %), as tests/test_parity_fixture.py
+PARITY_FIXTURES = {"synthetic_1200": (1200, 100.0),
+                   "synthetic_10500": (10500, 100.0),
+                   "jaero_drill_1200": (1200, 95.0)}
+
+
+def _check_on_card(label: str, built: list) -> None:
+    """Every demodulator and station a scenario built runs on the card,
+    with its state tensors there (no CPU fallback)."""
+    for obj in built:
+        if isinstance(obj, Station):
+            tree = obj.device_state()
+        elif isinstance(obj, FusedStation):
+            tree = obj._state
+        else:
+            tree = obj.state
+        devs = {t.device.type for t in _state_tensors(tree)}
+        if obj.device.type != "cuda" or devs - {"cuda"}:
+            raise AssertionError(f"{label}: {type(obj).__name__} on "
+                                 f"{obj.device}, state on {devs}")
+    if not built:
+        raise AssertionError(f"{label}: no demodulator or station ran")
+
+
+def phase_envelopes(card: str, workdir: str) -> dict:
+    """The reference's impairment envelopes, its fused soak with a
+    checkpoint restore, and the frame-parity tool, free-running on the
+    card: each scenario against JAX's threshold, the soak's three messages
+    and hunted carrier, and tools/torch_parity_check.py --device cuda at
+    100% on the synthetic fixtures and >= 95% on the drill."""
+    set_fp32_precision()
+    vk.reset_launches()
+    for name in CARD_ENVELOPES:
+        run, sent, need = ti.ENVELOPES[name]
+        before = vk.LAUNCHES
+        t0 = time.perf_counter()
+        built = []
+        got = run("cuda", built)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        _check_on_card(name, built)
+        steady = ""
+        if name in ti.STEADY:
+            first, frames, share = ti.STEADY[name]
+            n = len([i for i in got if i >= first])
+            steady = (f", steady state {n} of {frames} (JAX's least share "
+                      f"{share})")
+            if n / frames < share:
+                raise AssertionError(f"{name}: steady state {n} of {frames}")
+        launches = vk.LAUNCHES - before
+        log(f"envelope {name}: {len(got)} of {sent} recovered, JAX's "
+            f"threshold {need}{steady}, {dt:.2f} s on cuda, kernel "
+            f"launches {launches} ({card})")
+        if len(got) < need:
+            raise AssertionError(f"{name}: {len(got)} of {sent}, JAX's "
+                                 f"threshold {need}")
+        if name == "burst_r_combined" and launches <= 0:
+            raise AssertionError("burst R: the R/T framer did not launch "
+                                 "the kernel")
+    before = vk.LAUNCHES
+    t0 = time.perf_counter()
+    built = []
+    got, tel = ti.fused_soak("cuda", workdir, built)
+    torch.cuda.synchronize()
+    _check_on_card("fused soak", built)
+    texts = {m for _, m in got}
+    soak_launches = vk.LAUNCHES - before
+    log(f"fused soak (int16, batched host framing, hunter, T burst, "
+        f"checkpoint restore): {sorted(texts)}, hunted VFO at "
+        f"{tel['OFF']['freq']:.1f} Hz, BR packets {tel['BR']['packets']}, "
+        f"{time.perf_counter() - t0:.2f} s on cuda, kernel launches "
+        f"{soak_launches} ({card})")
+    if (set(ti.SOAK_TEXTS) - texts or abs(tel["OFF"]["freq"] - 2500.0)
+            >= 200.0 or tel["BR"]["packets"] < 1 or soak_launches <= 0):
+        raise AssertionError("fused soak failed on the card")
+    for fixture, (rate, least) in PARITY_FIXTURES.items():
+        base = os.path.join(ROOT, "tests", "fixtures", fixture)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc = tpc.main([base + ".wav", base + ".expected.jsonl", "-b",
+                           str(rate), "--min-parity", str(least),
+                           "--device", "cuda"])
+        rep = json.loads(out.getvalue().strip().splitlines()[-1])
+        log(f"tools/torch_parity_check.py --device cuda {fixture}: "
+            f"{json.dumps(rep)} (least {least}%), "
+            f"{time.perf_counter() - t0:.2f} s ({card})")
+        if rc != 0 or rep["parity_pct"] < least:
+            raise AssertionError(f"parity on {fixture}: {rep}")
+    return {"launches": vk.LAUNCHES, "soak_launches": soak_launches}
+
+
 def main() -> int:
     card = phase_environment()
     kern = phase_kernel(card)
@@ -1215,18 +1333,23 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_selftest(card)
         log(f"phase 11: {time.perf_counter() - t0:.1f} s ({card})")
+        t0 = time.perf_counter()
+        envelopes = phase_envelopes(card, tmp)
+        log(f"phase 12: {time.perf_counter() - t0:.1f} s ({card})")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches = (lband["launches"] + cband["launches"] + classic["launches"]
                 + pfb["launches"] + sharded["launches"]
-                + sclassic["launches"])
+                + sclassic["launches"] + envelopes["launches"])
     log(f"kernel launches on the main paths: {launches} (L-band "
         f"{lband['launches']}, C-band P bank "
         f"{cband['launches'] - cband['rt']}, C-band R/T framers "
         f"{cband['rt']}, classic 54W R/T framers {classic['rt']}, pfb "
         f"{pfb['launches']}, sharded L-band {sharded['launches']} (P bank "
         f"{sharded['launches'] - sharded['rt']}, R/T framers "
-        f"{sharded['rt']}), sharded classic 54W {sclassic['launches']})")
+        f"{sharded['rt']}), sharded classic 54W {sclassic['launches']}, "
+        f"envelopes and soak {envelopes['launches']} (soak "
+        f"{envelopes['soak_launches']}))")
     ms, dev_ms, plain_ms, bound_ms, bound_by = kern["timing"][(64, 631)]
     print(json.dumps({"kernels": [{
         "name": "viterbi_decode_soft_cuda",

@@ -14,9 +14,10 @@
    ``vfo_telemetry`` / ``vfo_spectrum``, the batched framer bank's
    ``feed`` / ``flush``, the burst wrapper's ``process``, the R/T framer
    module, the classic station's ``process``, the checkpoint's host-state
-   helpers, the single-VFO decoder's data path) parse to the same syntax
-   tree as the originals, up to the listed substitutions.  A later fix to
-   ``aero_tpu`` fails here until the port takes it too.
+   helpers, the single-VFO decoder's data path, the parity tool's
+   ``parity``) parse to the same syntax tree as the originals, up to the
+   listed substitutions.  A later fix to ``aero_tpu`` fails here until
+   the port takes it too.
 """
 
 import ast
@@ -50,9 +51,10 @@ NATIVE_SOURCES = ["native/ingest.cc", "native/viterbi.cc"]
 # files outside the package that run on the card's machine (no JAX there)
 CARD_SIDE = ["chip_smoke.py", "tools/torch_profile_step.py",
              "tools/viterbi_time.py", "tools/l54_burst_level.py",
-             "tests/torch_soft.py",
+             "tools/torch_parity_check.py", "tools/torch_make_fixture.py",
+             "tools/frame_diff.py", "tests/torch_soft.py",
              "tests/torch_station_bank.py", "tests/torch_lband54.py",
-             "tests/test_torch_cuda.py"]
+             "tests/torch_impair.py", "tests/test_torch_cuda.py"]
 
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
@@ -99,6 +101,26 @@ def test_port_imports_with_jax_blocked():
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.strip().splitlines()[-1].split())
     assert len(names) >= 40 and REQUIRED <= names, REQUIRED - names
+
+
+_BLOCKED_SCRIPTS = _BLOCKED_IMPORT.split("import aero_tpu_torch\n")[0] + r"""
+import runpy
+sys.path[1:1] = [sys.argv[1] + "/tests", sys.argv[1] + "/tools"]
+for rel in sys.argv[2:]:
+    runpy.run_path(sys.argv[1] + "/" + rel, run_name="card_side")
+assert not any(k.split(".")[0] in ("jax", "aero_tpu") for k in sys.modules)
+"""
+
+
+def test_card_side_scripts_import_with_jax_blocked():
+    """The smoke, the parity and fixture tools and the impairment streams
+    load with ``jax`` and ``aero_tpu`` blocked, as on the card's machine."""
+    rels = ["chip_smoke.py", "tools/torch_parity_check.py",
+            "tools/torch_make_fixture.py", "tests/torch_impair.py"]
+    res = subprocess.run([sys.executable, "-c", _BLOCKED_SCRIPTS, ROOT,
+                          *rels], capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
 
 
 def test_port_import_boundary_is_static():
@@ -285,6 +307,7 @@ def _pairs():
     from aero_tpu_torch.models import burst_common as tc
     from aero_tpu.runtime import checkpoint as jk, decoder as jd
     from aero_tpu_torch.runtime import checkpoint as tk, decoder as td
+    from tools import parity_check as jp, torch_parity_check as tp
     pairs = {f"checkpoint.{n}": (getattr(jk, n), getattr(tk, n), ())
              for n in _CHECKPOINT_FUNCS}
     pairs["checkpoint._save_topics"] = (jk._save_topics, tk._save_topics,
@@ -319,6 +342,7 @@ def _pairs():
         "burst.process": (jc.BurstWindowDemodulator.process,
                           tc.BurstWindowDemodulator.process, _PROCESS_SUBS),
         "rt_framing": (_source(jr), _source(tr), _RT_SUBS),
+        "parity_check.parity": (jp.parity, tp.parity, ()),
     }
 
 
@@ -326,7 +350,8 @@ def _pairs():
     "StationStats", "new_burst_stats", "account_burst_outputs",
     "account_framer_events", "quantize", "_drain", "vfo_telemetry",
     "bank.feed", "bank.flush", "vfo_spectrum", "burst.process", "rt_framing",
-    "Station.process", "checkpoint.save_classic_checkpoint"]
+    "Station.process", "checkpoint.save_classic_checkpoint",
+    "parity_check.parity"]
     + [f"checkpoint.{n}" for n in _CHECKPOINT_FUNCS]
     + [f"decoder.{n}" for n in _DECODER_METHODS])
 def test_copied_code_matches_original(name):

@@ -95,3 +95,33 @@ def test_block_agc_and_msk_ebno():
     jv = jstats.msk_ebno(jnp.asarray(mean), jnp.asarray(var))
     tv = tstats.msk_ebno(torch.from_numpy(mean), torch.from_numpy(var))
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **TOL)
+
+
+@pytest.mark.parametrize("alpha", [0.1, 1e-3])
+def test_moving_average_three_blocks_with_carry(alpha):
+    """The per-sample EMA on [3, 4096] over 3 blocks, the state carried:
+    within rtol = 1e-5, atol = 1e-6 of JAX's associative scan (another
+    tree of the same float32 products and sums), and within rtol = 2e-5
+    of a float64 loop on the same float32 coefficients (float32 rounding
+    over 4096 steps at alpha 1e-3 reaches ~9e-6)."""
+    rng = np.random.default_rng(5)
+    ja = jax.jit(jstats.moving_average_apply)
+    js = jstats.moving_average_init((3,))
+    ts = tstats.moving_average_init((3,))
+    ref = np.zeros(3)
+    a32 = float(np.float32(alpha))
+    d32 = float(np.float32(1.0) - np.float32(alpha))
+    assert ts.shape == (3,) and ts.dtype == torch.float32
+    for _ in range(3):
+        x = (1.0 + rng.standard_normal((3, 4096))).astype(np.float32)
+        js, jy = ja(js, jnp.asarray(x), alpha)
+        ts, ty = tstats.moving_average_apply(ts, torch.from_numpy(x), alpha)
+        want = np.empty((3, 4096))
+        for n in range(4096):
+            ref = d32 * ref + a32 * x[:, n].astype(np.float64)
+            want[:, n] = ref
+        assert ty.dtype == torch.float32 and ty.shape == x.shape
+        np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=1e-5,
+                                   atol=1e-6)
+        np.testing.assert_allclose(ty.numpy(), want, rtol=2e-5, atol=1e-6)
+        np.testing.assert_array_equal(ts.numpy(), ty.numpy()[:, -1])

@@ -224,3 +224,25 @@ def test_c_channel_round_trip_same_voice_as_jax(cfo, snr):
     assert res[1] == res[0]
     voices = [v for v, _ in res[1]]
     assert all(f[1] in voices for f in frames)
+
+
+def test_spectrum_after_three_blocks_same_state_as_jax():
+    """``OqpskDemodulator.spectrum`` after 3 blocks of a 10500 stream:
+    from JAX's state it equals JAX's display exactly (a decimating max and
+    the bin axis); free-running it is within the fold spectrum's 0.25 dB
+    of the teacher-forced tests."""
+    x = _two_vfos(10500, seed=3)[1]
+    jd = jo.OqpskDemodulator(48000, 10500)
+    td = to.OqpskDemodulator(48000, 10500, device="cpu")
+    n = 3 * jd.cfg.block_len
+    jd.process(x[:n])
+    td.process(x[:n])
+    free = td.spectrum()
+    td.state = convert.state_from_numpy(jax.tree.map(np.asarray, jd.state),
+                                        to.OqpskState)
+    for nbins in (256, 64):
+        (tf, ty), (jf, jy) = td.spectrum(nbins), jd.spectrum(nbins)
+        assert tf.dtype == np.float32 and ty.shape == (nbins,)
+        np.testing.assert_array_equal(tf, np.asarray(jf))
+        np.testing.assert_array_equal(ty, np.asarray(jy))
+    np.testing.assert_allclose(free[1], jd.spectrum()[1], rtol=0, atol=0.25)

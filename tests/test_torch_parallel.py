@@ -18,7 +18,9 @@ and the dry run, on CPU shards.
   differ more: torch's CPU FFT, matmul and conv take other paths for a
   batch of one, and an unlocked 8400 demod on noise amplifies that);
   teacher-forced against JAX's station sharded the same way, within
-  tests/test_torch_cuda.py:check_packed.  A group that the axis does not
+  tests/test_torch_cuda.py:check_packed (the two acquisition blocks on
+  noise within the mse gaps that ``_check_acquisition`` states and
+  explains).  A group that the axis does not
   divide raises ValueError, as in JAX.
 - Checkpoints: a JAX checkpoint loaded and then sharded, a sharded save
   loaded unsharded, and a sharded port save loaded by JAX, each resumes
@@ -27,6 +29,8 @@ and the dry run, on CPU shards.
 - ``Station(mesh=...)`` gives JAX's ACARS; ``dryrun_multidevice(4,
   device="cpu")`` passes; without CUDA a mesh on ``cuda`` raises.
 """
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -324,27 +328,60 @@ def test_fused_station_sharded_matches_unsharded(n):
             full._state))[0].shape
 
 
+def _check_acquisition(st, a, b, block):
+    """The packed buffers of an acquisition block (0 or 1 from the initial
+    state, on noise).  There each package's timing and phase estimates are
+    angles of noise-floor tone coefficients (``_tone_pair_sync``), which
+    amplify float32 summation order: a row's mse may differ by up to 1e-3
+    relative (tests/test_torch_msk.py::
+    test_acquisition_mse_gap_on_noise_is_the_tone_sync_angles).  At 8400
+    the first block's input is also the 2049-tap ``fir_apply_fft`` from a
+    zero history, whose float32 FFT error is ~1e-3 of that transient
+    output's peak: its mse may differ by up to 2e-2, and its soft bytes
+    are not compared in block 0.  Every other slot as ``check_packed``."""
+    fixed = a.copy()
+    ta = fixed[st._soft_total:].view(np.float32)
+    tb = b[st._soft_total:].view(np.float32)
+    order = []
+    for key in st._order:
+        if not key[2]:
+            nb = len(st.groups[key])
+            mse = slice(st._tel_ofs[key] + nb, st._tel_ofs[key] + 2 * nb)
+            gap = np.abs(ta[mse] - tb[mse]) / np.abs(tb[mse])
+            bound = 2e-2 if key[1] == 8400 else 1e-3
+            assert gap.max() <= bound, (key, block, float(gap.max()))
+            ta[mse] = tb[mse]
+            if key[1] == 8400 and block == 0:
+                continue
+        order.append(key)
+    check_packed(SimpleNamespace(_order=order, groups=st.groups,
+                                 _soft_total=st._soft_total,
+                                 _soft_ofs=st._soft_ofs,
+                                 _tel_ofs=st._tel_ofs), fixed, b)
+
+
 @pytest.mark.parametrize("n", [2, 4])
 def test_fused_station_sharded_teacher_forced_vs_jax(n):
     """JAX's station sharded over n virtual devices and the port's over n
-    CPU shards, each block from JAX's state.  JAX runs the first two
-    blocks alone: from the initial state on noise, an acquiring demod's
-    mse differs by up to 5e-4 relative on one row between the packages,
-    sharded or not (the unsharded pair shows the same figure)."""
+    CPU shards, each block from JAX's state, from the initial state on:
+    the first two blocks (acquisition on noise) within the gaps of
+    ``_check_acquisition``, the rest within ``check_packed``."""
     jst = _five_station(JaxFused).shard(_jax_mesh(n, "vfo"))
     tst = _five_station(FusedStation, device="cpu").shard(_cpu_mesh(n))
     step = jst._get_step(1)
     one = np.float32(1.0)
     for i, arr in enumerate(_noise_blocks(tst, 5, seed=2)):
-        if i >= 2:
-            tst._state = convert.fused_state_from_numpy(
-                jax.tree.map(np.asarray, jst._state))
-            _, tpacked = tst._step_shards(tst._shards, torch.from_numpy(arr),
-                                          torch.tensor(one))
+        tst._state = convert.fused_state_from_numpy(
+            jax.tree.map(np.asarray, jst._state))
+        _, tpacked = tst._step_shards(tst._shards, torch.from_numpy(arr),
+                                      torch.tensor(one))
         jst._state, jpacked = step(jst._state, jnp.asarray(arr[None]),
                                    jnp.asarray([one]))
         if i >= 2:
             check_packed(tst, tpacked.numpy(), np.asarray(jpacked)[0])
+        else:
+            _check_acquisition(tst, tpacked.numpy(), np.asarray(jpacked)[0],
+                               i)
 
 
 # ---- checkpoints across sharded and unsharded stations ----
