@@ -100,28 +100,32 @@ def _gated_coarse_offset(bb, gate, nfft, fb, fs, lockingbw):
 
 
 def _window_front_end(samples, gate, cfg, freq_center, taps):
-    """The part both burst window demodulators share, on one window.
+    """The part both burst window demodulators share, on windows.
 
-    samples, gate: [W] tensors on one device; ``taps`` the matched filter.
-    Dilates the gate by the 8*sps smoothing length, mixes by
-    ``freq_center``, removes the gated coarse offset, filters, normalizes
-    the gated mean magnitude to sqrt(2) and clips at 2.84.  Returns
-    (gate [1, W], dfc [1], y [1, W] complex64)."""
+    samples, gate: [W] or [B, W] tensors on one device; ``taps`` the
+    matched filter.  Dilates the gate by the 8*sps smoothing length, mixes
+    by ``freq_center``, removes the gated coarse offset, filters,
+    normalizes the gated mean magnitude to sqrt(2) and clips at 2.84.
+    Returns (gate [B, W], dfc [B], y [B, W] complex64), B = 1 for one
+    window."""
     x = torch.as_tensor(samples, dtype=torch.float32)
     dev = x.device
+    x = x.reshape(-1, x.shape[-1])
     W = x.shape[-1]
-    gate = torch.as_tensor(gate, dtype=torch.float32, device=dev)[None]
+    gate = torch.as_tensor(gate, dtype=torch.float32,
+                           device=dev).reshape(x.shape)
     gate = (convolve_same(gate, torch.ones(8 * cfg.sps, dtype=torch.float32,
                                            device=dev)) > 0).to(torch.float32)
     fc = torch.tensor([float(freq_center)], dtype=torch.float32, device=dev)
     _, bb = nco_mix(torch.zeros(1, dtype=torch.float32, device=dev),
-                    x[None].to(torch.complex64), fc / cfg.fs, conj=True)
+                    x.to(torch.complex64), fc / cfg.fs, conj=True)
     dfc = _gated_coarse_offset(bb, gate, cfg.nfft, cfg.fb, cfg.fs,
                                cfg.lockingbw)
     n = torch.arange(W, dtype=torch.float32, device=dev)
     bb = bb * cis((-2.0 * math.pi) * (dfc / cfg.fs)[:, None] * n)
     ntaps = taps.shape[0]
-    _, y = fir_apply(fir_init(ntaps, (1,), torch.complex64, dev), bb, taps)
+    _, y = fir_apply(fir_init(ntaps, (x.shape[0],), torch.complex64, dev),
+                     bb, taps)
     gsum = torch.clamp(torch.sum(gate, dim=-1), min=1.0)
     gmean = torch.sum(torch.abs(y) * gate, dim=-1) / gsum
     y = y * (math.sqrt(2.0) / torch.clamp(gmean, min=1e-6))[:, None]
@@ -131,12 +135,14 @@ def _window_front_end(samples, gate, cfg, freq_center, taps):
 
 
 def burst_msk_window(samples, gate, cfg: BurstMskConfig, freq_center=None):
-    """Demodulate one burst window [W] with its sample gate [W] (tensors
-    on one device; the work runs there).
+    """Demodulate one burst window [W] with its sample gate [W], or B
+    windows [B, W] with their gates [B, W] at once, as the JAX function
+    under ``vmap`` (tensors on one device; the work runs there).
 
     ``freq_center`` overrides cfg.freq_center (a signal hunter's retune).
     Returns a dict of tensors: soft [n_strobes, 2] float, active
-    [n_strobes] bool, freq_offset and tone_quality (0-dim)."""
+    [n_strobes] bool, freq_offset and tone_quality (0-dim), each with a
+    leading [B] for windows [B, W]."""
     if freq_center is None:
         freq_center = cfg.freq_center
     sps = cfg.sps
@@ -176,16 +182,20 @@ def burst_msk_window(samples, gate, cfg: BurstMskConfig, freq_center=None):
 
     grid = torch.where(eye_mse(cand[0]) <= eye_mse(cand[1]), cand[0], cand[1])
     pts_cur, pts_del, gt = strobes(grid)
-    start = torch.full((1,), -1.0, dtype=torch.float32, device=dev)
+    start = torch.full((y.shape[0],), -1.0, dtype=torch.float32,
+                       device=dev)
     ob_im, _ = _diffdecode(pts_del.imag, start)
     ob_re, _ = _diffdecode(pts_cur.real, start)
     soft = torch.stack([_soft_bytes(ob_im), _soft_bytes(-ob_re)], dim=-1)
-    return {
-        "soft": soft[0],
-        "active": (gt > 0.5)[0],
-        "freq_offset": (dfc + df * cfg.fs)[0],
-        "tone_quality": quality[0],
+    out = {
+        "soft": soft,
+        "active": gt > 0.5,
+        "freq_offset": dfc + df * cfg.fs,
+        "tone_quality": quality,
     }
+    if x.dim() == 1:
+        out = {k: v[0] for k, v in out.items()}
+    return out
 
 
 class BurstMskDemodulator(BurstWindowDemodulator):

@@ -103,6 +103,19 @@ Phases (any failure raises and the script exits non-zero):
     synthetic ones, >= 95% on the jaero drill.  The kernel's launches in
     this phase (the R/T framers, the soak's batched framing) join the
     kernels line's.
+13. ``python -m aero_tpu_torch.bench`` in full on cuda, as a subprocess
+    (the port's counterpart of bench.py: calibration, the PFB and cascade
+    chains, the MSK, OQPSK and burst demods, the CUDA Viterbi at B=128,
+    T=2496, the fused station's realtime factor at int4 and int2, emit
+    latency at real-time pacing): exit code 0, every section's best
+    positive and finite, the calibration below 105% of the card's fp32
+    peak (no TF32), at least 12 of the 24 latency messages mapped (JAX's
+    gate); the bench asserts that the kernel decoded its random bits
+    exactly.  Its JSON line is printed prefixed ``bench:``, its Viterbi
+    launches join the kernels line's; then the kernel at the bench's
+    shape is timed as in phase 2, beside its bound and plain torch, and
+    the fused station's realtime factor is read at 8 blocks per step with
+    2 and 0 steps in flight and at 1 block per step, in turns.
 
 The last two lines of standard output are the kernels' JSON record and the
 result line ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -115,6 +128,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import shutil
 import socket
@@ -126,7 +140,7 @@ import time
 import numpy as np
 import torch
 
-from aero_tpu_torch import convert, native
+from aero_tpu_torch import bench, convert, native
 from aero_tpu_torch.channelizer import load_ini
 from aero_tpu_torch.channelizer.pfb import pfb_channelize
 from aero_tpu_torch.device import set_fp32_precision
@@ -1287,6 +1301,71 @@ def phase_envelopes(card: str, workdir: str) -> dict:
     return {"launches": vk.LAUNCHES, "soak_launches": soak_launches}
 
 
+# ---- phase 13 --------------------------------------------------------------
+
+# the bench's figures that must be positive and finite: every section's best
+BENCH_POSITIVE = ("value", "calibration_gflops") + tuple(
+    k for k in bench.SECTION_KEYS if k != "latency_msgs")
+
+
+def phase_bench(card: str) -> dict:
+    """``python -m aero_tpu_torch.bench`` in full on the card: exit code 0,
+    every section's best positive and finite, no TF32 in the calibration,
+    at least 12 of 24 latency messages mapped, the Viterbi kernel
+    launched (the bench checks its decode bit for bit); then the kernel
+    at the bench's shape timed as phase 2 times it."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    res = subprocess.run([sys.executable, "-m", "aero_tpu_torch.bench"],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=ROOT, env=env)
+    for line in res.stderr.strip().splitlines():
+        log(f"bench | {line}")
+    if res.returncode != 0:
+        raise AssertionError(f"the bench exited {res.returncode}")
+    rec = json.loads(res.stdout.strip().splitlines()[-1])
+    log("bench: " + json.dumps(rec))
+    bad = [k for k in BENCH_POSITIVE
+           if not (isinstance(rec[k], (int, float)) and math.isfinite(rec[k])
+                   and rec[k] > 0)]
+    if bad:
+        raise AssertionError(f"bench figures not positive and finite: {bad}")
+    if rec["calibration_gflops"] >= 1.05 * bench.FP32_PEAK_GFLOPS:
+        raise AssertionError(f"calibration {rec['calibration_gflops']} "
+                             "GFLOP/s: TF32 is on")
+    if rec["latency_msgs"] < 12:
+        raise AssertionError(f"latency mapping: {rec['latency_msgs']} of 24")
+    if rec["viterbi_launches"] <= 0:
+        raise AssertionError("the bench did not launch the Viterbi kernel")
+    B, T = 128, 2496
+    _, soft, _ = bench.viterbi(B, T, torch.device("cuda"))
+    ms = call_ms(lambda: vk.viterbi_decode_soft_cuda(soft))
+    dev_ms = device_ms(lambda: vk.viterbi_decode_soft_cuda(soft))
+    plain_ms = call_ms(lambda: viterbi_decode_soft(soft), 2)
+    bound_ms, bound_by = viterbi_bound_ms(B, T)
+    log(f"viterbi B={B} T={T} (the bench's shape): wrapper call {ms:.4f} ms; "
+        f"kernel {dev_ms:.4f} ms (device, CUDA graph), "
+        f"{1e6 * dev_ms / T:.1f} ns per trellis step; bound "
+        f"{1e3 * bound_ms:.4f} us (by {bound_by}), "
+        f"{100 * bound_ms / dev_ms:.3f}% of it by device time; plain torch "
+        f"{plain_ms:.2f} ms; bench launches {rec['viterbi_launches']} "
+        f"({card})")
+    # the fused station's pipelining, in this process on the same card:
+    # the bench's throughput shape against no step in flight and against
+    # one block per step, in turns
+    rates = {}
+    for bps, depth in ((8, 2), (8, 0), (1, 0), (8, 2), (8, 0), (1, 0)):
+        m, _ = bench.bench_fused_station(blocks_per_step=bps,
+                                         pipeline_depth=depth, repeats=3,
+                                         device="cuda")
+        rates.setdefault((bps, depth), []).append(m["best"])
+    log("fused station realtime factor (best of 3 x 16 blocks, twice, in "
+        "turns) by blocks_per_step / pipeline_depth: " + "; ".join(
+            f"{bps} / {d}: {', '.join(f'{r:.2f}x' for r in rs)}"
+            for (bps, d), rs in rates.items()) + f" ({card})")
+    return {"launches": rec["viterbi_launches"]}
+
+
 def main() -> int:
     card = phase_environment()
     kern = phase_kernel(card)
@@ -1336,11 +1415,15 @@ def main() -> int:
         t0 = time.perf_counter()
         envelopes = phase_envelopes(card, tmp)
         log(f"phase 12: {time.perf_counter() - t0:.1f} s ({card})")
+        t0 = time.perf_counter()
+        benched = phase_bench(card)
+        log(f"phase 13: {time.perf_counter() - t0:.1f} s ({card})")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches = (lband["launches"] + cband["launches"] + classic["launches"]
                 + pfb["launches"] + sharded["launches"]
-                + sclassic["launches"] + envelopes["launches"])
+                + sclassic["launches"] + envelopes["launches"]
+                + benched["launches"])
     log(f"kernel launches on the main paths: {launches} (L-band "
         f"{lband['launches']}, C-band P bank "
         f"{cband['launches'] - cband['rt']}, C-band R/T framers "
@@ -1349,7 +1432,7 @@ def main() -> int:
         f"{sharded['launches'] - sharded['rt']}, R/T framers "
         f"{sharded['rt']}), sharded classic 54W {sclassic['launches']}, "
         f"envelopes and soak {envelopes['launches']} (soak "
-        f"{envelopes['soak_launches']}))")
+        f"{envelopes['soak_launches']}), bench {benched['launches']})")
     ms, dev_ms, plain_ms, bound_ms, bound_by = kern["timing"][(64, 631)]
     print(json.dumps({"kernels": [{
         "name": "viterbi_decode_soft_cuda",

@@ -26,7 +26,10 @@ CUDA device is present.  On the card, from the repository root (the
   and the classic station decode the same ACARS on the card as the same
   station unsharded there, the fused one through the kernel, and a
   sharded fused step agrees with the unsharded one within the limits of
-  ``check_packed``.
+  ``check_packed``;
+- the bench's Viterbi and demod sections (``aero_tpu_torch.bench``) time
+  positive rates on the card, the Viterbi one through the kernel, whose
+  decode equals the twin's and the encoded bits.
 
 ``check_packed`` and the C-band bank builders below are shared with
 tests/test_torch_mixed.py and chip_smoke.py (this file imports no JAX, so
@@ -465,3 +468,22 @@ def test_sharded_classic_station_on_card_matches_unsharded(cuda):
     assert all(len(b._shards) == 2 for b in st.banks.values())
     assert ("X", "BATCH XX") in results[False][0]
     assert results[False] == results[True]
+
+
+def test_bench_viterbi_and_demod_sections_on_card(cuda):
+    from aero_tpu_torch import bench
+
+    rounds = bench.Rounds(2)
+    before = vk.LAUNCHES
+    vit = bench.bench_viterbi(rounds, B=8, T=2496, n_iter=2, device=cuda)
+    demod = bench.bench_demod_only(rounds, B=4, n_iter=2, device=cuda)
+    rounds.run()
+    assert vk.LAUNCHES == before + 1 + 2 * 2
+    for m in (vit, demod):
+        assert np.isfinite(m["best"]) and m["best"] > 0
+    state, soft, step = bench.viterbi(8, 2496, cuda)
+    _, got = step(state, soft)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), viterbi_decode_soft(soft.cpu()))
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  bench.viterbi_bits(8, 2496))

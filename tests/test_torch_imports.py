@@ -74,8 +74,8 @@ assert not any(k.split(".")[0] in ("jax", "aero_tpu") for k in sys.modules)
 print(" ".join(names))
 """
 
-# modules the walk must reach (each subpackage, and the classic station's
-# and the single-VFO CLIs' modules)
+# modules the walk must reach (each subpackage, the classic station's and
+# the single-VFO CLIs' modules, and the bench)
 REQUIRED = {"aero_tpu_torch." + m for m in (
     "parallel.vfo_bank", "channelizer.channelizer", "channelizer.pfb",
     "runtime.station", "runtime.checkpoint", "runtime.hunter",
@@ -83,7 +83,7 @@ REQUIRED = {"aero_tpu_torch." + m for m in (
     "runtime.station_main", "utils.profiling", "utils.logging",
     "io.zmq_transport", "io.sdr", "ops.spectral", "protocol.acars_apps",
     "parallel.mesh", "parallel.time_shard", "parallel.multihost",
-    "parallel.selftest", "parallel.dryrun")}
+    "parallel.selftest", "parallel.dryrun", "bench")}
 
 
 def _scanned_files():
