@@ -20,6 +20,12 @@ the same workload shapes, signals and round-robin repeats:
 - ``fused_station_latency``: emit time minus arrival time of ACARS
   messages at real-time pacing.
 
+The two station sections run the station as it runs by default, its
+device step a CUDA-graph replay per block, and again inside
+``device.disable_graphs()`` (the step's ops one by one); the eager
+figures are printed beside the graphed ones on stderr and the JSON line
+carries the graphed ones.
+
 Run on the card (the default) or, small, on the CPU:
 
     python -m aero_tpu_torch.bench
@@ -50,7 +56,8 @@ import torch
 
 from aero_tpu_torch.channelizer import load_ini
 from aero_tpu_torch.channelizer.pfb import pfb_channelize_fused, pfb_init
-from aero_tpu_torch.device import resolve_device, set_fp32_precision
+from aero_tpu_torch.device import (disable_graphs, resolve_device,
+                                   set_fp32_precision)
 from aero_tpu_torch.models import burst_msk, msk, oqpsk
 from aero_tpu_torch.ops import viterbi_kernel as vk
 from aero_tpu_torch.ops.design import HALFBAND_TAPS, hilbert_design
@@ -582,25 +589,34 @@ def main(argv=None) -> int:
         fused = _sizes(args, B=50, n_iter=16)
         reps = args.repeats or 5
         rtf, B2 = bench_fused_station(device=dev, repeats=reps, **fused)
+        rtf2, _ = bench_fused_station(ingest="int2", device=dev,
+                                      repeats=reps, **fused)
+        lat = bench_fused_station_latency(B=B2, device=dev)
+        with disable_graphs():
+            eager = bench_fused_station(device=dev, repeats=reps, **fused)[0]
+            eager2 = bench_fused_station(ingest="int2", device=dev,
+                                         repeats=reps, **fused)[0]
+            lat_e = bench_fused_station_latency(B=B2, device=dev)
         print(f"fused_station: {rtf['best']:.1f}x best / "
               f"{rtf['median']:.1f}x median real time END TO END "
               f"({B2} VFOs, int4 ingest, incl. host framing and host-card "
-              f"transfers)", file=sys.stderr)
-        rtf2, _ = bench_fused_station(ingest="int2", device=dev,
-                                      repeats=reps, **fused)
+              f"transfers; eager step {eager['best']:.1f}x / "
+              f"{eager['median']:.1f}x)", file=sys.stderr)
         print(f"fused_station_int2: {rtf2['best']:.1f}x best / "
               f"{rtf2['median']:.1f}x median real time END TO END "
-              f"(2-bit sign-magnitude ingest, 0.5 B/sample to the card)",
-              file=sys.stderr)
-        lat = bench_fused_station_latency(B=B2, device=dev)
+              f"(2-bit sign-magnitude ingest, 0.5 B/sample to the card; "
+              f"eager step {eager2['best']:.1f}x / "
+              f"{eager2['median']:.1f}x)", file=sys.stderr)
         (p50_tp, p99_tp), (p50_lo, p99_lo) = lat["bps8"], lat["bps1"]
+        (e50_tp, e99_tp), (e50_lo, e99_lo) = lat_e["bps8"], lat_e["bps1"]
         print(f"fused_station_latency: p50 {p50_tp:.0f} ms / p99 "
               f"{p99_tp:.0f} ms ingest->ACARS at blocks_per_step=8 "
-              f"depth=2 (throughput shape); p50 {p50_lo:.0f} ms / p99 "
-              f"{p99_lo:.0f} ms at blocks_per_step=1 depth=0 (latency "
+              f"depth=2 (throughput shape); p50 {p50_lo:.1f} ms / p99 "
+              f"{p99_lo:.1f} ms at blocks_per_step=1 depth=0 (latency "
               f"shape; {lat['n']} msgs, real-time paced, {B2} VFOs; "
-              f"p99 = worst observed at this sample count)",
-              file=sys.stderr)
+              f"p99 = worst observed at this sample count); eager step "
+              f"p50 {e50_tp:.0f} / p99 {e99_tp:.0f} ms and p50 "
+              f"{e50_lo:.1f} / p99 {e99_lo:.1f} ms", file=sys.stderr)
         extras.update(fused_station_rt_best=rtf["best"],
                       fused_station_int2_rt_best=rtf2["best"],
                       latency_bps8_p50_ms=p50_tp, latency_bps8_p99_ms=p99_tp,

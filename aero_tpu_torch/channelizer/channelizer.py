@@ -22,10 +22,17 @@ dtypes, complex carries as complex64 tensors (``convert`` maps them to and
 from the JAX checkpoint layout).  JAX packs complex values as float pairs
 at its jit boundaries (``aero_tpu/ops/compat.py``); torch has complex
 tensors at every boundary, so the port has no such packing.
+
+Where JAX jits one step per decimation and one per sub group
+(``_jit_main``, ``_jit_sub``), each runs on a card as one CUDA-graph
+replay (``utils/graphs.py``), its chain state in static buffers.  The
+copies back of each group's output, the int16 and nibble packing on the
+host, and the DC correction stay as they are.
 """
 
 from __future__ import annotations
 
+import functools
 from collections import defaultdict
 
 import numpy as np
@@ -41,6 +48,7 @@ from aero_tpu_torch.ops.fir import (delay_apply, delay_init, fir_apply,
                                     fir_init, halfband_cascade_apply,
                                     halfband_cascade_init)
 from aero_tpu_torch.ops.nco import nco_init, nco_mix
+from aero_tpu_torch.utils.graphs import GraphedStep
 
 _HB = HALFBAND_TAPS[11].astype(np.float32)   # vfo.init uses 11 taps (vfo.cpp:106-108)
 _HILBERT_NTAPS = 125                          # vfo.cpp:112
@@ -97,6 +105,23 @@ def _mix_and_halfband(st, x, freqs, hb):
     return new, z
 
 
+def _sub_chain(st, x, *, freqs, gains, hb, hilb, late, late_taps,
+               post_taps):
+    """A sub group's chain on its source block x [T]: (new chain dict,
+    int16 pcm [n, T_out])."""
+    new, z = _mix_and_halfband(st, x, freqs, hb)
+    if late:
+        new["late"], z = fir_decimate_apply(st["late"], z, late_taps, late)
+    new["hilb"], h = fir_apply(st["hilb"], z.imag, hilb)
+    new["dly"], d = delay_apply(st["dly"], z.real)
+    audio = d - h
+    if post_taps is not None:
+        new["post"], audio = fir_apply(st["post"], audio, post_taps)
+    pcm = torch.clamp(audio * gains[:, None] * 32768.0, -32767.0,
+                      32767.0).to(torch.int16)
+    return new, pcm
+
+
 class Channelizer:
     """Host driver around the batched per-group VFO chains, on ``device``."""
 
@@ -114,14 +139,16 @@ class Channelizer:
         self.main_groups = defaultdict(list)     # decim -> [main indices]
         for i, m in enumerate(cfg.mains):
             self.main_groups[m.decim_count].append(i)
-        self._main_state = {}
-        self._main_freqs = {}
+        self._main_steps = {}
         for decim, idxs in self.main_groups.items():
             freqs = np.array([(cfg.center_frequency - cfg.mains[i].freq)
                               / self.fs for i in idxs], np.float32)
-            self._main_freqs[decim] = torch.from_numpy(freqs).to(dev)
-            self._main_state[decim] = _chain_init(decim, False, 0, 0, 0,
-                                                  len(idxs), dev)
+            self._main_steps[decim] = GraphedStep(
+                functools.partial(_mix_and_halfband,
+                                  freqs=torch.from_numpy(freqs).to(dev),
+                                  hb=self._hb),
+                _chain_init(decim, False, 0, 0, 0, len(idxs), dev),
+                f"Channelizer main decim {decim}")
 
         # ---- sub VFO groups ----
         # group key: (main_idx, decim, late, filter_bw, out_rate)
@@ -130,11 +157,7 @@ class Channelizer:
             key = (s.main_idx, s.decim_count, s.late_decimate, s.filter_bw,
                    s.out_rate)
             self.sub_groups[key].append(i)
-        self._sub_state = {}
-        self._sub_freqs = {}
-        self._sub_gains = {}
-        self._sub_late_taps = {}
-        self._sub_post_taps = {}
+        self._sub_steps = {}
         for key, idxs in self.sub_groups.items():
             main_idx, decim, late, filter_bw, out_rate = key
             main_rf = (cfg.mains[main_idx].freq if main_idx >= 0
@@ -143,50 +166,57 @@ class Channelizer:
                        else self.fs)
             freqs = np.array([(main_rf - cfg.subs[i].freq) / in_rate
                               for i in idxs], np.float32)
-            self._sub_freqs[key] = torch.from_numpy(freqs).to(dev)
-            self._sub_gains[key] = torch.from_numpy(np.asarray(
-                [cfg.subs[i].gain for i in idxs], np.float32)).to(dev)
-            ntaps_late = 0
+            gains = np.asarray([cfg.subs[i].gain for i in idxs], np.float32)
+            late_taps = post_taps = None
             if late:
                 target = out_rate
-                taps = low_pass_design(2.0, target * late, target / 2,
-                                       target / (late - 1)).astype(np.float32)
-                self._sub_late_taps[key] = torch.from_numpy(taps).to(dev)
-                ntaps_late = len(taps)
-            ntaps_post = 0
+                late_taps = low_pass_design(
+                    2.0, target * late, target / 2,
+                    target / (late - 1)).astype(np.float32)
             if filter_bw > 0:
-                taps = low_pass_design(2.0, out_rate, filter_bw,
-                                       filter_bw / 4).astype(np.float32)
-                self._sub_post_taps[key] = torch.from_numpy(taps).to(dev)
-                ntaps_post = len(taps)
-            self._sub_state[key] = _chain_init(decim, True, late, ntaps_late,
-                                               ntaps_post, len(idxs), dev)
+                post_taps = low_pass_design(2.0, out_rate, filter_bw,
+                                            filter_bw / 4).astype(np.float32)
+            state = _chain_init(
+                decim, True, late, 0 if late_taps is None else len(late_taps),
+                0 if post_taps is None else len(post_taps), len(idxs), dev)
 
-    # ---- group steps ----
+            def put(a):
+                return None if a is None else torch.from_numpy(a).to(dev)
+            self._sub_steps[key] = GraphedStep(
+                functools.partial(_sub_chain, freqs=put(freqs),
+                                  gains=put(gains), hb=self._hb,
+                                  hilb=self._hilb, late=late,
+                                  late_taps=put(late_taps),
+                                  post_taps=put(post_taps)),
+                state, f"Channelizer sub group {key}")
 
-    def _main_step(self, decim, x):
-        """(new chain, z [n, T']) for the main group of ``decim``."""
-        return _mix_and_halfband(self._main_state[decim], x,
-                                 self._main_freqs[decim], self._hb)
+    # ---- chain states (checkpoints, convert) ----
 
-    def _sub_step(self, key, x):
-        """(new chain, int16 pcm [n, T_out]) for a sub group."""
-        st = self._sub_state[key]
-        new, z = _mix_and_halfband(st, x, self._sub_freqs[key], self._hb)
-        late = key[2]
-        if late:
-            new["late"], z = fir_decimate_apply(
-                st["late"], z, self._sub_late_taps[key], late)
-        new["hilb"], h = fir_apply(st["hilb"], z.imag, self._hilb)
-        new["dly"], d = delay_apply(st["dly"], z.real)
-        audio = d - h
-        post = self._sub_post_taps.get(key)
-        if post is not None:
-            new["post"], audio = fir_apply(st["post"], audio, post)
-        g = self._sub_gains[key][:, None]
-        pcm = torch.clamp(audio * g * 32768.0, -32767.0, 32767.0).to(
-            torch.int16)
-        return new, pcm
+    @property
+    def _main_state(self) -> dict:
+        """A copy of each main group's chain state, by decimation."""
+        return {k: s.snapshot() for k, s in self._main_steps.items()}
+
+    @_main_state.setter
+    def _main_state(self, tree):
+        for k, s in self._main_steps.items():
+            s.state = tree[k]
+
+    @property
+    def _sub_state(self) -> dict:
+        """A copy of each sub group's chain state, by group key."""
+        return {k: s.snapshot() for k, s in self._sub_steps.items()}
+
+    @_sub_state.setter
+    def _sub_state(self, tree):
+        for k, s in self._sub_steps.items():
+            s.state = tree[k]
+
+    @property
+    def captures(self) -> int:
+        """CUDA graphs captured by the group steps so far."""
+        return sum(s.captures for s in (*self._main_steps.values(),
+                                        *self._sub_steps.values()))
 
     # ---- host driver ----
 
@@ -213,7 +243,7 @@ class Channelizer:
 
         main_out = {}          # main idx -> complex [T'] tensor
         for decim, idxs in self.main_groups.items():
-            self._main_state[decim], z = self._main_step(decim, x)
+            z = self._main_steps[decim](x)
             zh = None
             for row, i in enumerate(idxs):
                 main_out[i] = z[row]
@@ -228,7 +258,7 @@ class Channelizer:
         for key, idxs in self.sub_groups.items():
             main_idx = key[0]
             src = x if main_idx < 0 else main_out[main_idx]
-            self._sub_state[key], pcm = self._sub_step(key, src)
+            pcm = self._sub_steps[key](src)
             pcm = pcm.cpu().numpy()
             for row, i in enumerate(idxs):
                 s = self.cfg.subs[i]

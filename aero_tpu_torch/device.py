@@ -1,14 +1,25 @@
-"""Device selection and float32 math settings for the port.
+"""Device selection, float32 math settings and the CUDA-graph switch for
+the port.
 
 Every tensor the port creates names its device explicitly; nothing sets a
 global default device.  ``resolve_device("cuda")`` on a machine without
 CUDA raises instead of falling back to the CPU, so a run that was meant to
 measure the card can never quietly measure the host.
+
+The device steps of the stations and banks run as CUDA-graph replays on a
+card (``utils/graphs.py``); ``disable_graphs()``, the counterpart of
+``jax.disable_jit()``, runs them eagerly on the card instead, to compare
+the two modes.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import torch
+
+_GRAPHS = contextvars.ContextVar("aero_tpu_torch_graphs", default=True)
 
 
 def resolve_device(name) -> torch.device:
@@ -50,3 +61,22 @@ def set_fp32_precision() -> None:
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
     assert torch.get_float32_matmul_precision() == "highest"
+
+
+def graphs_enabled() -> bool:
+    """Whether device steps on a card run as CUDA-graph replays (the
+    default) rather than eagerly."""
+    return _GRAPHS.get()
+
+
+@contextlib.contextmanager
+def disable_graphs():
+    """Inside, every ``GraphedStep`` on a card runs its step eagerly, op by
+    op, through the same static buffers (the counterpart of
+    ``jax.disable_jit()``; the tests and ``chip_smoke.py`` compare the two
+    modes with it).  The only switch: graphs are on everywhere else."""
+    token = _GRAPHS.set(False)
+    try:
+        yield
+    finally:
+        _GRAPHS.reset(token)

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from aero_tpu_torch.device import resolve_device
+from aero_tpu_torch.utils.trees import tree_map
 
 
 class Mesh:
@@ -117,20 +118,6 @@ def make_mesh(n_devices: int | None = None, axis: str = "vfo",
             raise ValueError(f"{n} cards requested, {count} visible")
         return Mesh([torch.device("cuda", i) for i in range(n)], (axis,))
     return Mesh([dev] * (1 if n_devices is None else n_devices), (axis,))
-
-
-# ---- trees: dicts, NamedTuples, lists and tuples of tensors ----
-
-def tree_map(fn, *trees):
-    """``fn`` over the leaves of trees of the same structure."""
-    t = trees[0]
-    if isinstance(t, dict):
-        return {k: tree_map(fn, *(x[k] for x in trees)) for k in t}
-    if isinstance(t, tuple) and hasattr(t, "_fields"):
-        return type(t)(*(tree_map(fn, *xs) for xs in zip(*trees)))
-    if isinstance(t, (list, tuple)):
-        return type(t)(tree_map(fn, *xs) for xs in zip(*trees))
-    return fn(*trees)
 
 
 def shard_over_vfo(mesh: Mesh, tree, axis: str = "vfo") -> list:

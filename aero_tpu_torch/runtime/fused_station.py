@@ -24,10 +24,20 @@ burst window demodulators and R/T framers, whose window functions,
 detection statistics and checkpoint Viterbi decodes run on the station's
 device.
 
-``blocks_per_step``: m blocks upload together and run as m steps before
-one packed [m, n] result is queued.  ``pipeline_depth``: d such results
-stay in flight (the device runs ahead of the host framing) before the host
-copies the oldest back.
+Where JAX jits the step (``_get_step``), the port runs it on a card as
+one CUDA-graph replay per block (``utils/graphs.py``): each shard's step
+(dequantize, filterbank, residual mix, demods, hunter, burst audio and the
+packing) is captured once, its state held in static buffers that the
+replay updates in place; ``device.disable_graphs()`` runs the same step
+eagerly.  The upload, the joins of several shards, ``_drain`` with its
+host framing, the Viterbi kernel and the burst window demods stay eager.
+
+``blocks_per_step``: m blocks upload together and run as m steps (m
+replays of the one-block graph, which also serves the shorter last
+dispatch of a ``flush``; JAX scans m blocks in one executable) before one
+packed [m, n] result is queued, a fresh tensor that no later replay
+writes.  ``pipeline_depth``: d such results stay in flight (the device
+runs ahead of the host framing) before the host copies the oldest back.
 
 ``shard(mesh)`` cuts every per-VFO carry over a device mesh
 (``parallel/mesh.py``); each shard then steps its rows on its device, and
@@ -60,6 +70,8 @@ from aero_tpu_torch.protocol.c_framing import CChannelFramer
 from aero_tpu_torch.protocol.framing import PChannelFramer, apply_slip
 from aero_tpu_torch.protocol.rt_framing import RTChannelFramer
 from aero_tpu_torch.protocol.su_dispatch import PChannelSUDispatcher
+from aero_tpu_torch.utils.graphs import GraphedStep
+from aero_tpu_torch.utils.trees import tree_map
 from aero_tpu_torch.runtime.station import (StationStats,
                                             account_framer_events,
                                             account_burst_outputs,
@@ -232,9 +244,11 @@ class FusedStation:
             self._tel_ofs[key] = tel_pos
             tel_pos += TEL_SLOTS * nb
         self._soft_total = soft_pos
+        self._packed_len = soft_pos + 4 * tel_pos
         self.mesh, self._axis = Mesh([self.device]), "vfo"
-        self._state = self._init_state()
         self._shard_params = [self._params]
+        self._steps = []
+        self._state = self._init_state()
         self.pipeline_depth = pipeline_depth if pipeline else 0
         self.blocks_per_step = max(1, int(blocks_per_step))
         self._inflight = deque()
@@ -356,49 +370,105 @@ class FusedStation:
 
     @property
     def _state(self):
-        """The device state as one tree, every row, on the station's
-        device (the layout ``convert`` maps to and from JAX's)."""
-        return self._join(self._shards)
+        """A copy of the device state as one tree, every row, on the
+        station's device (the layout ``convert`` maps to and from JAX's);
+        assigning it writes the shards' static state buffers."""
+        return tree_map(torch.clone, self._join(self._shards))
 
     @_state.setter
     def _state(self, tree):
         self._shards = self._split(tree)
 
+    @property
+    def _shards(self) -> list:
+        """Each shard's live state tree (its graphed step's static
+        buffers; the next block updates them in place)."""
+        return [s.state for s in self._steps]
+
+    @_shards.setter
+    def _shards(self, trees):
+        if len(trees) == len(self._steps):
+            for s, tree in zip(self._steps, trees):
+                s.state = tree
+            return
+        self._steps = [GraphedStep(self._shard_fn(i), tree,
+                                   f"FusedStation shard {i} of {len(trees)}")
+                       for i, tree in enumerate(trees)]
+
+    def _shard_fn(self, i: int):
+        def step(state, iq2, scale):
+            return self._shard_step(state, iq2, scale, self._shard_params[i])
+        return step
+
+    @property
+    def captures(self) -> int:
+        """CUDA graphs captured by the station's steps so far."""
+        return sum(s.captures for s in self._steps)
+
     def _step(self, state, iq2, scale):
         """One block: (state tree, quantized block, scale) -> (new state
-        tree, packed uint8 buffer), through the station's shards."""
+        tree, packed uint8 buffer), through the station's shards; eager
+        and functional (the station's own state is not touched)."""
         new, packed = self._step_shards(self._split(state), iq2, scale)
         return self._join(new), packed
 
     def _step_shards(self, shards, iq2, scale):
-        """One block over the shards: each steps its rows on its device;
-        then each group's soft rows are joined in row order and its
-        telemetry rows joined before the slot-major stack, so the packed
-        buffer has the unsharded layout (JAX's).  One thread enqueues
-        every shard in turn, so N shards in a process cost about N times
-        the host launch time of a block's demod steps."""
+        """One block over the shards, eagerly: each steps its rows on its
+        device, and their packed buffers are joined (``_join_packed``).
+        One thread enqueues every shard in turn, so N shards in a process
+        cost about N times the host launch time of a block's demod
+        steps."""
         new, parts = [], []
         for sh, dev, params in zip(shards, self.mesh.devices,
                                    self._shard_params):
             n, p = self._shard_step(sh, iq2.to(dev), scale.to(dev), params)
             new.append(n)
             parts.append(p)
+        return new, self._join_packed(parts)
+
+    def _run_block(self, iq2, scale, out):
+        """One block through the station's graphed steps into ``out``
+        (the packed row of its dispatch), advancing the station's state:
+        one replay per shard, then the joins."""
+        if len(self._steps) == 1 and not self.mesh.spans_processes(
+                self._axis):
+            self._steps[0](iq2, scale, out=out)
+            return
+        out.copy_(self._join_packed(
+            [s(iq2, scale) for s in self._steps]))
+
+    def _join_packed(self, parts):
+        """The shards' packed buffers, each its rows in the station's
+        layout, joined into the station's (JAX's): per group the soft
+        rows in row order, then per group the telemetry slots, each
+        slot's rows in row order."""
+        if len(parts) == 1 and not self.mesh.spans_processes(self._axis):
+            return parts[0].to(self.device)
+        size = self.mesh.shape[self._axis]
+        rows = {key: len(self.groups[key]) // size for key in self._order}
+        pos = 0
+        tpos = sum(r * self._soft_ofs[key][1] for key, r in rows.items())
         soft, tel = [], []
         for key in self._order:
-            soft.append(gather(self.mesh, [p[key][0] for p in parts], 0,
-                               self._axis, self.device).reshape(-1))
-            tel.append(gather(self.mesh, [p[key][1] for p in parts], 1,
-                              self._axis, self.device).reshape(-1))
-        # ONE flat uint8 buffer: soft bits, then the float32 telemetry's
-        # bytes (little-endian on both x86 hosts and the card)
-        tb = torch.cat(tel).contiguous().view(torch.uint8)
-        return new, torch.cat(soft + [tb])
+            r, per = rows[key], self._soft_ofs[key][1]
+            soft.append(gather(self.mesh, [p[pos:pos + r * per].view(r, per)
+                                           for p in parts], 0, self._axis,
+                               self.device).reshape(-1))
+            n = TEL_SLOTS * 4 * r
+            tel.append(gather(self.mesh,
+                              [p[tpos:tpos + n].view(TEL_SLOTS, 4 * r)
+                               for p in parts], 1, self._axis,
+                              self.device).reshape(-1))
+            pos += r * per
+            tpos += n
+        return torch.cat(soft + tel)
 
     def _shard_step(self, state, iq2, scale, params):
         """One shard's block on its device: (its state, quantized block,
-        scale, its rows' bins and residuals) -> (new state, {group key:
-        (soft or burst-audio bytes [rows, n], telemetry [TEL_SLOTS,
-        rows])})."""
+        scale, its rows' bins and residuals) -> (new state, packed uint8
+        buffer of its rows in the station's layout: per group the soft
+        bits or burst audio bytes [rows, n], then per group the float32
+        telemetry [TEL_SLOTS, rows] as bytes)."""
         x = self._dequantize(iq2, scale)
         dev = x.device
         new = {"pfb": {}, "grp": {}}
@@ -449,7 +519,11 @@ class FusedStation:
             parts[key] = (out["soft_bits"], torch.stack(
                 [out["signal"].to(torch.float32), out["mse"], out["ebno"],
                  s2.freq, out["slip"].to(torch.float32)]))
-        return new, parts
+        soft = [parts[key][0].reshape(-1) for key in self._order]
+        tel = torch.cat([parts[key][1].reshape(-1) for key in self._order])
+        # ONE flat uint8 buffer: soft bits, then the float32 telemetry's
+        # bytes (little-endian on both x86 hosts and the card)
+        return new, torch.cat(soft + [tel.view(torch.uint8)])
 
     # ---- host driver ----
 
@@ -518,18 +592,18 @@ class FusedStation:
 
     def _dispatch(self):
         """Upload the pending blocks in one copy, run one device step per
-        block, and queue the stacked packed buffers [m, n]."""
+        block (a graph replay per shard on a card), and queue the packed
+        buffers [m, n], a fresh tensor that no later step writes."""
         iqs = torch.from_numpy(np.stack([a for a, _ in self._pending])).to(
             self.device)
         scales = torch.from_numpy(np.asarray(
             [s for _, s in self._pending], np.float32)).to(self.device)
         self._pending = []
-        rows = []
+        packed = torch.empty((iqs.shape[0], self._packed_len),
+                             dtype=torch.uint8, device=self.device)
         for i in range(iqs.shape[0]):
-            self._shards, packed = self._step_shards(self._shards, iqs[i],
-                                                     scales[i])
-            rows.append(packed)
-        self._inflight.append(torch.stack(rows))
+            self._run_block(iqs[i], scales[i], packed[i])
+        self._inflight.append(packed)
 
     def shard(self, mesh, axis_name: str = "vfo"):
         """Cut the per-VFO banks over one mesh axis (``parallel/mesh.py``;
@@ -551,8 +625,9 @@ class FusedStation:
                     f"mesh axis {axis_name!r} of size {n_axis}")
         state = self._state
         self.mesh, self._axis = mesh, axis_name
-        self._state = state
         self._shard_params = shard_over_vfo(mesh, self._params, axis_name)
+        self._steps = []        # new devices: new static buffers, graphs
+        self._state = state
         return self
 
     def _shard_row(self, key, row: int):

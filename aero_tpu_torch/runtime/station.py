@@ -293,6 +293,14 @@ class Station:
         self.stats.wideband_samples += len(iq_block)
         self.stats.wall_seconds += time.perf_counter() - t0
 
+    @property
+    def captures(self) -> int:
+        """CUDA graphs captured by the station's device steps so far: the
+        tree channelizer's group steps (the filterbank backend has none)
+        and the demod banks'."""
+        return (getattr(self.channelizer, "captures", 0)
+                + sum(b.captures for b in self.banks.values()))
+
     # ---- checkpoint/resume (runtime/checkpoint.py) ----
 
     def device_state(self) -> dict:

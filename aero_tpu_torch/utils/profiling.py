@@ -7,6 +7,14 @@ writes a Chrome trace.  The JAX package's ``enable_compile_cache`` and
 the CLIs' ``--compile-cache`` have no counterpart: torch has no XLA
 compile cache, and the kernel's build directory ``build/aero_tpu_torch/``
 is the port's cache.
+
+On a card the stations' and banks' device steps run as CUDA-graph
+replays by default (``utils/graphs.py``), so a trace shows a graph launch
+per step on the host and the replay's kernels on the device; to trace the
+step op by op, run the block inside ``device.disable_graphs()``, which
+runs the same steps eagerly on the card.  On the CPU (the tests) the
+steps always run eagerly; the card's side, graphed against eager, runs in
+``chip_smoke.py`` phase 14 and ``tests/test_torch_cuda.py``.
 """
 
 from __future__ import annotations

@@ -5,7 +5,8 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-Phases (any failure raises and the script exits non-zero):
+Phases (any failure raises and the script exits non-zero; the stations'
+and banks' device steps run as CUDA-graph replays, the port's default):
 
 1. Environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions; CUDA must be available; full-fp32 math is set; the
@@ -117,6 +118,20 @@ Phases (any failure raises and the script exits non-zero):
     the fused station's realtime factor is read at 8 blocks per step with
     2 and 0 steps in flight and at 1 block per step, in turns.
 
+14. The device steps as CUDA-graph replays (``aero_tpu_torch/utils/
+    graphs.py``; every phase above runs them graphed, the default): the
+    L band, the C band, the classic 54W, the L band over two shards and
+    the bench's station at 8 blocks per step with 2 steps in flight, each
+    run eager (``device.disable_graphs()``), graphed and eager again on
+    the same input; the graphed run must give the eager run's packed
+    buffers, telemetry, ACARS, voice file, channelizer payloads and bank
+    outputs byte for byte (unless the two eager runs already differ),
+    with one capture per step object (the classic hunters' retunes
+    capture nothing new).  Then each path's times in both modes in turns
+    (eager, graphed, graphed, eager): the serial block's stages, the step
+    alone (host enqueue, CUDA events, device operations, graph launches,
+    device time, idle share) and the captures.
+
 The last two lines of standard output are the kernels' JSON record and the
 result line ``{"ok": true, "device": {...}}``.  Without CUDA, or without
 the rest of the repository beside it, the script fails before printing a
@@ -143,7 +158,8 @@ import torch
 from aero_tpu_torch import bench, convert, native
 from aero_tpu_torch.channelizer import load_ini
 from aero_tpu_torch.channelizer.pfb import pfb_channelize
-from aero_tpu_torch.device import set_fp32_precision
+from aero_tpu_torch.device import (disable_graphs, graphs_enabled,
+                                   set_fp32_precision)
 from aero_tpu_torch.models.msk import msk_modulate
 from aero_tpu_torch.ops import viterbi_kernel as vk
 from aero_tpu_torch.ops.design import HALFBAND_TAPS
@@ -607,9 +623,8 @@ def phase_cband(card: str, workdir: str) -> dict:
         f"{launches - rt}, R/T framers {rt}), realtime factor {rtf:.2f}x, "
         f"{per_block:.1f} ms per block (host wall clock incl. first-block "
         f"warm-up; {card})")
-    os.remove(iq)
-    return {"station": st, "launches": launches, "rt": rt,
-            "layout": layout, "content": content}
+    return {"station": st, "launches": launches, "rt": rt, "ini": ini,
+            "iq": iq, "layout": layout, "content": content}
 
 
 def stage_times(st, wide, card: str, label: str) -> dict:
@@ -638,8 +653,9 @@ def stage_times(st, wide, card: str, label: str) -> dict:
         t3 = time.perf_counter()
         for name, dt in zip(times, (t1 - t0, t2 - t1, t3 - t2)):
             times[name].append(1e3 * dt)
-    log(f"{label} block of {L} samples, median of {len(wide) // L} warm "
-        "blocks, serial: " + ", ".join(
+    mode = "graphed" if graphs_enabled() else "eager"
+    log(f"{label} block of {L} samples ({mode}), median of {len(wide) // L} "
+        "warm blocks, serial: " + ", ".join(
             f"{k} {float(np.median(v)):.3f} ms" for k, v in times.items())
         + f" ({card})")
     out = {k: float(np.median(v)) for k, v in times.items()}
@@ -648,14 +664,20 @@ def stage_times(st, wide, card: str, label: str) -> dict:
 
 
 def step_times(st, q, card: str, label: str) -> dict:
-    """One block's device step alone, through the station's shards, on a
+    """One block's device step alone, as the station runs it (a graph
+    replay per shard, or eagerly inside ``disable_graphs()``), on a
     quantized block ``q``: host enqueue and CUDA-event device time per
     step over 10 steps, and under torch.profiler over 3 steps the device
-    operations per step, their summed device time and the device's idle
-    share of the step."""
+    operations per step (the kernels and copies the profiler reports on
+    the device, a replay's kernels included), the graph launches the host
+    made, their summed device time and the device's idle share of the
+    step; and the station's captures so far.  The station's state is put
+    back afterwards."""
     iq = torch.from_numpy(q[0] if isinstance(q, tuple) else q).to(st.device)
     scale = torch.tensor(np.float32(1.0), device=st.device)
-    shards = st._shards
+    out = torch.empty(st._packed_len, dtype=torch.uint8, device=st.device)
+    saved = st._state
+    st._run_block(iq, scale, out)                 # warm (or capture)
     ev0 = torch.cuda.Event(enable_timing=True)
     ev1 = torch.cuda.Event(enable_timing=True)
     n = 10
@@ -663,7 +685,7 @@ def step_times(st, q, card: str, label: str) -> dict:
     t0 = time.perf_counter()
     ev0.record()
     for _ in range(n):
-        st._step_shards(shards, iq, scale)
+        st._run_block(iq, scale, out)
     ev1.record()
     enqueue_ms = 1e3 * (time.perf_counter() - t0) / n
     torch.cuda.synchronize()
@@ -673,22 +695,29 @@ def step_times(st, q, card: str, label: str) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            st._step_shards(shards, iq, scale)
+            st._run_block(iq, scale, out)
         torch.cuda.synchronize()
+    st._state = saved
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
+    launches = sum(e.name == "cudaGraphLaunch" for e in prof.events())
     busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / n
     idle = 100 * (1 - busy_ms / step_ms)
-    log(f"{label} step alone: host enqueue {enqueue_ms:.3f} ms, device "
-        f"(CUDA events) {step_ms:.3f} ms per step; profiler: "
-        f"{len(dev) / n:.1f} device operations, {busy_ms:.3f} ms of device "
-        f"time per step, device idle {idle:.1f}% ({card})")
+    mode = "graphed" if graphs_enabled() else "eager"
+    log(f"{label} step alone ({mode}): host enqueue {enqueue_ms:.3f} ms, "
+        f"device (CUDA events) {step_ms:.3f} ms per step; profiler: "
+        f"{len(dev) / n:.1f} device operations and {launches / n:.1f} graph "
+        f"launches per step, {busy_ms:.3f} ms of device time per step, "
+        f"device idle {idle:.1f}%; captures {st.captures} ({card})")
     top = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
-    log(f"{label} step, largest device times per step: " + ", ".join(
-        f"{e.key} {e.self_device_time_total / 1e3 / n:.3f} ms"
-        for e in top[:6]))
+    log(f"{label} step ({mode}), largest device times per step: " +
+        ", ".join(f"{e.key} {e.self_device_time_total / 1e3 / n:.3f} ms"
+                  for e in top[:6]))
     return {"enqueue_ms": enqueue_ms, "step_ms": step_ms,
-            "device_ops": len(dev) / n, "busy_ms": busy_ms, "idle": idle}
+            "device_ops": len(dev) / n, "graph_launches": launches / n,
+            "busy_ms": busy_ms, "idle": idle, "captures": st.captures,
+            "table": prof.key_averages().table(
+                sort_by="self_device_time_total", row_limit=40)}
 
 
 # ---- phase 7 ---------------------------------------------------------------
@@ -780,7 +809,9 @@ def classic_stage_times(st, wide, card: str, label: str = "classic") -> None:
         st.process(wide[b * L:(b + 1) * L])
     total = time.perf_counter() - t0
     host = total - spent["channelizer"] - spent["banks"]
-    log(f"{label} block of {L} samples, mean of {n} warm blocks, serial: "
+    mode = "graphed" if graphs_enabled() else "eager"
+    log(f"{label} block of {L} samples ({mode}), mean of {n} warm blocks, "
+        "serial: "
         f"channelizer {1e3 * spent['channelizer'] / n:.3f} ms, banks "
         f"{1e3 * spent['banks'] / n:.3f} ms, host framing and burst "
         f"watchers {1e3 * host / n:.3f} ms, total {1e3 * total / n:.3f} ms "
@@ -801,10 +832,10 @@ def classic_stage_times(st, wide, card: str, label: str = "classic") -> None:
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / k
-    log(f"{label} block under the profiler: {len(dev) / k:.1f} device "
-        f"operations, {busy_ms:.3f} ms of device time per block of "
-        f"{wall_ms:.3f} ms, device idle {100 * (1 - busy_ms / wall_ms):.1f}% "
-        f"({card})")
+    log(f"{label} block under the profiler ({mode}): {len(dev) / k:.1f} "
+        f"device operations, {busy_ms:.3f} ms of device time per block of "
+        f"{wall_ms:.3f} ms, device idle {100 * (1 - busy_ms / wall_ms):.1f}%, "
+        f"captures {st.captures} ({card})")
 
 
 def phase_classic_vs_cpu(st, block, workdir: str) -> None:
@@ -1366,6 +1397,241 @@ def phase_bench(card: str) -> dict:
     return {"launches": rec["viterbi_launches"]}
 
 
+# ---- phase 14 --------------------------------------------------------------
+
+def _mode(name: str):
+    return disable_graphs() if name == "eager" else contextlib.nullcontext()
+
+
+def _canon(obj) -> str:
+    """A telemetry or output record as text, NaN equal to NaN."""
+    return json.dumps(obj, sort_keys=True, default=repr)
+
+
+def _fused_run(argv, prepare=None) -> tuple:
+    """``station_main`` over ``argv`` with each drained packed buffer,
+    the telemetry after each drain and the ACARS recorded; returns (the
+    record, the station)."""
+    rec = {"packed": [], "telemetry": []}
+
+    def hook(st):
+        if prepare is not None:
+            prepare(st)
+        drain = st._drain
+
+        def recording(packed, _drain=drain):
+            rec["packed"].append(packed.cpu().numpy())
+            _drain(packed)
+            rec["telemetry"].append(_canon(st.vfo_telemetry()))
+        st._drain = recording
+    box, heard = {}, []
+    run_station_main(argv, box, heard, {}, prepare=hook)
+    rec["acars"] = heard
+    return rec, box["st"]
+
+
+def _classic_run(argv) -> tuple:
+    """``station_main --backend tree`` with the channelizer's payloads,
+    every bank output and the ACARS recorded, and the hunters' retunes
+    counted; returns (the record, the station)."""
+    rec = {"channelizer": [], "banks": [], "retunes": 0}
+
+    def hook(st):
+        process = st.channelizer.process
+
+        def channelizer(iq, _p=process):
+            out = _p(iq)
+            rec["channelizer"].append(out)
+            return out
+        st.channelizer.process = channelizer
+        for key, bank in st.banks.items():
+            def step(x, _p=bank.process_block, _k=key):
+                out = _p(x)
+                rec["banks"].append((repr(_k), {
+                    k: v.cpu().numpy() for k, v in out.items()}))
+                return out
+
+            def retune(rows, freqs, _r=bank.retune):
+                rec["retunes"] += 1
+                _r(rows, freqs)
+            bank.process_block, bank.retune = step, retune
+    box, heard = {}, []
+    run_station_main(argv, box, heard, {}, prepare=hook)
+    rec["acars"] = heard
+    return rec, box["st"]
+
+
+def _bench_run(blocks) -> tuple:
+    """The bench's throughput station (the 50-VFO bank, int4, 8 blocks
+    per step, 2 steps in flight) over quantized ``blocks``, each drained
+    packed buffer recorded; returns (the record, the station)."""
+    st = FusedStation(load_ini(bench.bank_ini(50), is_text=True),
+                      ingest_dtype="int4", blocks_per_step=8,
+                      pipeline_depth=2, device="cuda")
+    rec = {"packed": [], "telemetry": [], "depth": 0, "acars": []}
+    st.on_acars = lambda topic, item: rec["acars"].append(
+        (topic, item.message))
+    drain = st._drain
+
+    def recording(packed):
+        rec["depth"] = max(rec["depth"], len(st._inflight) + 1)
+        rec["packed"].append(packed.cpu().numpy())
+        drain(packed)
+        rec["telemetry"].append(_canon(st.vfo_telemetry()))
+    st._drain = recording
+    for q in blocks:
+        st.process(q)
+    st.flush()
+    return rec, st
+
+
+def _differences(a: dict, b: dict) -> list:
+    """What differs between two runs' records (empty: byte for byte
+    equal)."""
+    out = []
+    for k in a:
+        if k in ("retunes", "depth"):
+            continue
+        x, y = a[k], b[k]
+        if k == "packed":
+            if len(x) != len(y):
+                out.append(f"{k}: {len(x)} vs {len(y)} buffers")
+                continue
+            n = sum(int((u != v).sum()) for u, v in zip(x, y))
+            if n:
+                out.append(f"packed: {n} of {sum(u.size for u in x)} "
+                           "bytes differ")
+        elif k == "banks":
+            n = sum(int((u[1][f] != v[1][f]).sum())
+                    for u, v in zip(x, y) for f in u[1])
+            if len(x) != len(y) or n:
+                out.append(f"banks: {n} values differ over {len(x)} steps")
+        elif x != y:
+            out.append(f"{k} differ")
+    return out
+
+
+def phase_graphs(card: str, workdir: str, lband: dict, cband: dict,
+                 classic: dict) -> None:
+    """Graphed against eager on every path: the L band, the C band, the
+    classic 54W, the L band over two shards and the bench's 8-per-step,
+    depth-2 station, each run eager, graphed and eager again on the same
+    input: the graphed run must equal the eager one byte for byte (packed
+    buffers, telemetry after every drain, ACARS in order, the C band's
+    voice file, the classic channelizer's payloads and bank outputs),
+    unless two eager runs already differ, and every step object must
+    have been captured once (the hunters' retunes recapture nothing).
+    Then each path's times in both modes, in turns (eager, graphed,
+    graphed, eager): the serial block's stages, the step alone (host
+    enqueue, CUDA events, the profiler's device operations, graph launches
+    and device time, the idle share) and the captures."""
+    fused = ["--backend", "fused", "--batch-framing", "--device", "cuda",
+             "--ingest-dtype", "int4", "--format", "jsondump", "-s",
+             "CHIP-SMOKE", "--stats-every", "1e9"]
+    l_argv = ["-c", lband["ini"], "--iq-file", lband["iq"]] + fused
+    voices = iter(range(100))
+    k_argv = ["-c", l54.INI_PATH, "--iq-file", classic["paths"]["w"],
+              "--backend", "tree", "--device", "cuda", "--format",
+              "jsondump", "-s", "CHIP-SMOKE", "--stats-every", "1e9"]
+    rng = np.random.default_rng(12)
+    probe = FusedStation(load_ini(bench.bank_ini(50), is_text=True),
+                         ingest_dtype="int4", device="cpu")
+    blocks = [probe.quantize((0.02 * (rng.standard_normal(
+        (probe.block_len, 2)) @ [1, 1j])).astype(np.complex64))
+        for _ in range(40)]
+    del probe
+
+    def c_run():
+        voice = os.path.join(workdir, f"voice{next(voices)}.bin")
+        rec, st = _fused_run(["-c", cband["ini"], "--iq-file", cband["iq"],
+                              "--voice-out", voice] + fused)
+        with open(voice, "rb") as f:
+            rec["voice"] = f.read()
+        return rec, st
+    paths = {
+        "L band": lambda: _fused_run(l_argv),
+        "C band": c_run,
+        "classic 54W": lambda: _classic_run(k_argv),
+        "L band, 2 shards": lambda: _fused_run(
+            l_argv, prepare=lambda st: st.shard(card_mesh(2))),
+        "bench 8 per step, depth 2": lambda: _bench_run(blocks),
+    }
+    stations = {}
+    for name, run in paths.items():
+        t0 = time.perf_counter()
+        recs = {}
+        for i, mode in enumerate(("eager", "graphed", "eager")):
+            with _mode(mode):
+                recs[i], st = run()
+            torch.cuda.synchronize()
+            if mode == "graphed":
+                stations[name] = st
+        steps = (st._steps if isinstance(st, FusedStation) else
+                 [*st.channelizer._main_steps.values(),
+                  *st.channelizer._sub_steps.values(),
+                  *(s for b in st.banks.values() for s in b._steps)])
+        g = stations[name]
+        eager_eager = _differences(recs[0], recs[2])
+        graph_eager = _differences(recs[1], recs[0])
+        extra = (f", {recs[1]['retunes']} hunter retunes"
+                 if "retunes" in recs[1] else "")
+        extra += (f", {recs[1]['depth']} dispatches in flight at most"
+                  if "depth" in recs[1] else "")
+        log(f"graphs, {name}: graphed vs eager "
+            f"{graph_eager or 'byte for byte equal'}; eager vs eager "
+            f"{eager_eager or 'byte for byte equal'}; "
+            f"{len(recs[1].get('packed', recs[1].get('channelizer')))} "
+            f"drains or blocks, {len(recs[1]['acars'])} ACARS; captures "
+            f"{g.captures} for {len(steps)} step objects{extra} "
+            f"({time.perf_counter() - t0:.1f} s; {card})")
+        if graph_eager and not eager_eager:
+            raise AssertionError(f"{name}: graphed differs from eager: "
+                                 f"{graph_eager}")
+        if g.captures != len(steps):
+            raise AssertionError(f"{name}: {g.captures} captures for "
+                                 f"{len(steps)} steps")
+        if "depth" in recs[1] and recs[1]["depth"] < 2:
+            raise AssertionError(f"{name}: never two dispatches in flight")
+    os.remove(cband["iq"])
+
+    # times, in turns
+    wide = {"L band": make_wideband(lband["block_len"], 4, seed=9),
+            "C band": cband_wideband(FS, cband["layout"], cband["content"],
+                                     6 * stations["C band"].block_len,
+                                     seed=8)}
+    k_wide = np.fromfile(classic["paths"]["w"], np.complex64)[
+        : 12 * l54.BLOCK]
+    k_st, retunes = stations["classic 54W"], [0]
+    captures = k_st.captures
+    for bank in k_st.banks.values():
+        def counted(rows, freqs, _r=bank.retune):
+            retunes[0] += 1
+            _r(rows, freqs)
+        bank.retune = counted
+    for mode in ("eager", "graphed", "graphed", "eager"):
+        with _mode(mode):
+            for name, st in stations.items():
+                if name in wide:
+                    stage_times(st, wide[name], card, name)
+                elif name == "classic 54W":
+                    classic_stage_times(st, k_wide, card, name)
+                else:
+                    q = blocks[0] if name.startswith("bench") else \
+                        st.quantize(wide["L band"][: st.block_len])
+                    step_times(st, q, card, name)
+    # the empty VFOs' hunters retune their banks (15 silent bank steps,
+    # one per 2.67 blocks): in place, no capture
+    n = 0
+    while retunes[0] == 0 and n < 96:
+        k_st.process(k_wide[(n % 12) * l54.BLOCK:(n % 12 + 1) * l54.BLOCK])
+        n += 1
+    log(f"classic 54W hunters: {retunes[0]} bank retunes over the timed "
+        f"blocks and {n} more, captures {k_st.captures} ({card})")
+    if retunes[0] == 0 or k_st.captures != captures:
+        raise AssertionError(f"classic 54W: {retunes[0]} retunes, captures "
+                             f"{captures} -> {k_st.captures}")
+
+
 def main() -> int:
     card = phase_environment()
     kern = phase_kernel(card)
@@ -1418,6 +1684,9 @@ def main() -> int:
         t0 = time.perf_counter()
         benched = phase_bench(card)
         log(f"phase 13: {time.perf_counter() - t0:.1f} s ({card})")
+        t0 = time.perf_counter()
+        phase_graphs(card, tmp, lband, cband, classic)
+        log(f"phase 14: {time.perf_counter() - t0:.1f} s ({card})")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches = (lband["launches"] + cband["launches"] + classic["launches"]

@@ -29,7 +29,14 @@ CUDA device is present.  On the card, from the repository root (the
   ``check_packed``;
 - the bench's Viterbi and demod sections (``aero_tpu_torch.bench``) time
   positive rates on the card, the Viterbi one through the kernel, whose
-  decode equals the twin's and the encoded bits.
+  decode equals the twin's and the encoded bits;
+- the device steps as CUDA-graph replays (``utils/graphs.py``): a small
+  fused station (4 blocks per step, 2 steps in flight) and a small MSK
+  bank with a retune between steps give the same bytes graphed as under
+  ``device.disable_graphs()``, each step captured once; a step that
+  syncs with the host inside its capture raises ``CaptureError`` naming
+  the step (in a child process: a failed capture may leave the CUDA
+  context unusable).
 
 ``check_packed`` and the C-band bank builders below are shared with
 tests/test_torch_mixed.py and chip_smoke.py (this file imports no JAX, so
@@ -487,3 +494,104 @@ def test_bench_viterbi_and_demod_sections_on_card(cuda):
     assert torch.equal(got.cpu(), viterbi_decode_soft(soft.cpu()))
     np.testing.assert_array_equal(got.cpu().numpy(),
                                   bench.viterbi_bits(8, 2496))
+
+
+def _drained(st, blocks):
+    """Each block's packed row as ``st`` drains it over ``blocks``."""
+    got, drain = [], st._drain
+
+    def recording(packed):
+        got.extend(packed.cpu().numpy())
+        drain(packed)
+    st._drain = recording
+    for q in blocks:
+        st.process(q)
+    st.flush()
+    return got
+
+
+def test_graphed_fused_station_equals_eager(cuda):
+    from aero_tpu_torch.channelizer import load_ini
+    from aero_tpu_torch.device import disable_graphs
+    from aero_tpu_torch.runtime.fused_station import FusedStation
+    from torch_station_bank import INI, make_wideband
+
+    wb = make_wideband()
+
+    def run():
+        st = FusedStation(load_ini(INI, is_text=True), ingest_dtype="int4",
+                          batch_host_framing=True, blocks_per_step=4,
+                          pipeline_depth=2, device=cuda)
+        L = st.block_len
+        w = np.concatenate([wb, np.zeros(2 * L, np.complex64)])
+        return _drained(st, [w[i:i + L] for i in
+                             range(0, (len(w) // L) * L, L)]), st
+    with disable_graphs():
+        eager, est = run()
+    graphed, gst = run()
+    assert est.captures == 0 and gst.captures == 1
+    assert len(graphed) == len(eager) == 8
+    for g, e in zip(graphed, eager):
+        np.testing.assert_array_equal(g, e)
+
+
+def test_graphed_vfo_bank_equals_eager_across_a_retune(cuda):
+    from aero_tpu_torch.device import disable_graphs
+    from aero_tpu_torch.models.msk import msk_modulate
+    from aero_tpu_torch.parallel.vfo_bank import MskVfoBank
+
+    rng = np.random.default_rng(4)
+    sig = msk_modulate(rng.integers(0, 2, 4000), 24000, 1200, freq=1000.0)
+    x = [np.stack([np.roll(sig, 97 * r)[:16000] for r in range(4)])
+         + 0.05 * rng.standard_normal((4, 16000)).astype(np.float32)
+         for _ in range(3)]
+
+    def run():
+        bank = MskVfoBank(4, 24000, 1200, device=cuda)
+        outs = [bank.process_block(x[0])]
+        bank.retune([1, 3], [1500.0, 800.0])
+        outs += [bank.process_block(b) for b in x[1:]]
+        return [{k: v.cpu().numpy() for k, v in o.items()} for o in outs], \
+            bank
+    with disable_graphs():
+        eager, eb = run()
+    graphed, gb = run()
+    assert eb.captures == 0 and gb.captures == 1
+    for g, e in zip(graphed, eager):
+        for k in e:
+            np.testing.assert_array_equal(g[k], e[k], err_msg=k)
+
+
+_SYNC_IN_CAPTURE = """
+import torch
+from aero_tpu_torch.utils.graphs import CaptureError, GraphedStep
+
+def step(state, x):
+    new = {"acc": state["acc"] + x}
+    if new["acc"].sum().item() > 1e9:      # a host sync
+        new["acc"] = new["acc"] * 0
+    return new, new["acc"] * 2
+
+st = GraphedStep(step, {"acc": torch.zeros(8, device="cuda")},
+                 "the syncing step")
+try:
+    st(torch.ones(8))
+except CaptureError as e:
+    print("RAISED", e)
+else:
+    print("RAN", st.captures)
+"""
+
+
+def test_capture_with_a_host_sync_raises(cuda):
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    res = subprocess.run([sys.executable, "-c", _SYNC_IN_CAPTURE],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=root, env=env)
+    assert "RAISED" in res.stdout, (res.stdout, res.stderr[-2000:])
+    assert "the syncing step" in res.stdout
