@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from aero_tpu_torch.device import resolve_device
 from aero_tpu_torch.ops.design import low_pass_design
 from aero_tpu_torch.ops.nco import cis, fused_mul_add
+from aero_tpu_torch.utils.graphs import GraphedStep
 
 
 @functools.lru_cache(maxsize=None)
@@ -139,6 +140,25 @@ def pfb_extract_vfo(z_k, phase, residual_norm):
     return new_phase, z_k * osc
 
 
+def _group_step(state, x, K, bins, resid, gain):
+    """One rate group's step: state (filterbank carry [L - M], residual-mix
+    phases [n]) and the wideband block x [T] -> (new state, int16 pcm
+    [n, F]).  ``bins`` and ``resid`` are the group's device constants."""
+    carry, phase = state
+    chan = (pfb_channelize_fused if (x.shape[-1] // (K // 2)) % 2 == 0
+            else pfb_channelize)
+    st, z = chan(carry, x, K)
+    zb = z[bins]                                   # [n, F]
+    F_len = zb.shape[1]
+    n = torch.arange(F_len, dtype=torch.float32, device=x.device)
+    ramp = fused_mul_add(resid[:, None], n, phase[:, None])
+    osc = cis((2.0 * math.pi) * torch.remainder(ramp, 1.0))
+    new_phase = torch.remainder(fused_mul_add(resid, F_len, phase), 1.0)
+    audio = (zb * osc).real * gain * 32768.0
+    pcm = torch.clamp(audio, -32767.0, 32767.0).to(torch.int16)
+    return (st, new_phase), pcm
+
+
 class PfbChannelizer:
     """Alternative to ``Channelizer`` for uniform-rate VFO banks, on
     ``device``.
@@ -148,7 +168,10 @@ class PfbChannelizer:
     per VFO.  Main-VFO IQ topics are not supported here (use the tree
     channelizer for those): the constructor asserts, as the JAX one does.
     The state per rate is the complex64 filterbank carry [L - M] and the
-    residual-mix phases [n]."""
+    residual-mix phases [n].  Each group's step is a graphed step
+    (``utils/graphs.py``, the counterpart of the JAX backend's per-group
+    jit): a CUDA-graph replay per block on a card, its state in static
+    buffers; ``_state`` and ``_phase`` read copies."""
 
     def __init__(self, cfg, audio_center: float = 1000.0, gain: float = 10.0,
                  device="cuda"):
@@ -163,9 +186,7 @@ class PfbChannelizer:
         self.groups = defaultdict(list)
         for i, s in enumerate(cfg.subs):
             self.groups[s.out_rate].append(i)
-        self._state = {}
-        self._phase = {}
-        self._params = {}
+        self._steps = {}
         for out_rate, idxs in self.groups.items():
             K = int(round(2 * self.fs / out_rate))
             assert abs(2 * self.fs / out_rate - K) < 1e-9, \
@@ -182,32 +203,47 @@ class PfbChannelizer:
                 # USB-audio convention: audio frequency = signal - rf, so
                 # the bin output only needs the -r residual shift
                 resid.append(-r / out_rate)
-            self._params[out_rate] = (
-                K, torch.as_tensor(np.asarray(bins, np.int64),
-                                   device=self.device),
-                torch.as_tensor(np.asarray(resid, np.float32),
-                                device=self.device))
-            self._state[out_rate] = pfb_init(K, device=self.device)
-            self._phase[out_rate] = torch.zeros(len(idxs),
-                                                dtype=torch.float32,
-                                                device=self.device)
+            step = functools.partial(
+                _group_step, K=K,
+                bins=torch.as_tensor(np.asarray(bins, np.int64),
+                                     device=self.device),
+                resid=torch.as_tensor(np.asarray(resid, np.float32),
+                                      device=self.device),
+                gain=self.gain)
+            state = (pfb_init(K, device=self.device),
+                     torch.zeros(len(idxs), dtype=torch.float32,
+                                 device=self.device))
+            self._steps[out_rate] = GraphedStep(
+                step, state, f"PfbChannelizer group {out_rate}")
 
-    def _group_step(self, out_rate, x):
-        """One rate group: (new carry, new phases, int16 pcm [n, F])."""
-        K, bins, resid = self._params[out_rate]
-        chan = (pfb_channelize_fused if (x.shape[-1] // (K // 2)) % 2 == 0
-                else pfb_channelize)
-        st, z = chan(self._state[out_rate], x, K)
-        zb = z[bins]                                   # [n, F]
-        F_len = zb.shape[1]
-        phase = self._phase[out_rate]
-        n = torch.arange(F_len, dtype=torch.float32, device=x.device)
-        ramp = fused_mul_add(resid[:, None], n, phase[:, None])
-        osc = cis((2.0 * math.pi) * torch.remainder(ramp, 1.0))
-        new_phase = torch.remainder(fused_mul_add(resid, F_len, phase), 1.0)
-        audio = (zb * osc).real * self.gain * 32768.0
-        pcm = torch.clamp(audio, -32767.0, 32767.0).to(torch.int16)
-        return st, new_phase, pcm
+    @property
+    def _state(self) -> dict:
+        """A copy of each rate group's filterbank carry; assigning it
+        writes the static buffers (checkpoint loads)."""
+        return {r: s.state[0].clone() for r, s in self._steps.items()}
+
+    @_state.setter
+    def _state(self, carries: dict):
+        for r, c in carries.items():
+            step = self._steps[r]
+            step.state = (c, step.state[1])
+
+    @property
+    def _phase(self) -> dict:
+        """A copy of each rate group's residual-mix phases; assigning it
+        writes the static buffers."""
+        return {r: s.state[1].clone() for r, s in self._steps.items()}
+
+    @_phase.setter
+    def _phase(self, phases: dict):
+        for r, p in phases.items():
+            step = self._steps[r]
+            step.state = (step.state[0], p)
+
+    @property
+    def captures(self) -> int:
+        """CUDA graphs captured by the group steps so far."""
+        return sum(s.captures for s in self._steps.values())
 
     def process(self, iq: np.ndarray) -> list:
         """iq [T] complex64 -> [(topic, out_rate, int16 audio payload), ...]"""
@@ -215,9 +251,7 @@ class PfbChannelizer:
         iq = np.asarray(iq, np.complex64)
         x = torch.from_numpy(np.ascontiguousarray(iq)).to(self.device)
         for out_rate, idxs in self.groups.items():
-            self._state[out_rate], self._phase[out_rate], pcm = \
-                self._group_step(out_rate, x)
-            pcm = pcm.cpu().numpy()
+            pcm = self._steps[out_rate](x).cpu().numpy()
             for row, i in enumerate(idxs):
                 out.append((self.cfg.subs[i].topic, out_rate,
                             pcm[row].astype("<i2").tobytes()))

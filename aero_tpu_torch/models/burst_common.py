@@ -13,6 +13,14 @@ detection statistics (``_envelope``, ``_autocorr_rho``) and the window
 function run on that device, and their results come back to the host as
 numpy for the threshold and gate bookkeeping.  A demodulator built for
 ``cuda`` computes nothing of them on the CPU.
+
+Each of the three is a graphed step the demodulator holds
+(``utils/graphs.py``), the counterparts of JAX's jits: on a card the
+statistics replay one CUDA graph per (ring bucket, ``smooth`` or
+``lag``) -- the ring is padded to a 16384 multiple, so a run captures a
+handful -- and the window function one per configuration, its
+``freq_center`` a 0-d input tensor, so that ``set_center`` retunes a
+captured graph.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import torch
 
 from aero_tpu_torch.device import resolve_device
 from aero_tpu_torch.ops.fir import convolve_same
+from aero_tpu_torch.utils.graphs import stateless
 
 
 @functools.lru_cache(maxsize=None)
@@ -62,13 +71,26 @@ def _bool_runs(mask: np.ndarray):
 class BurstWindowDemodulator:
     def __init__(self, cfg, window_fn, rho_threshold: float = 0.35,
                  device="cuda"):
+        from aero_tpu_torch.models.burst_msk import _envelope
         self.cfg = cfg
-        self._window_fn = window_fn
         self._ring = np.zeros(0, np.float32)
         self._noise_floor = 0.0
         self.rho_threshold = rho_threshold
         self.freq_center = float(cfg.freq_center)
         self.device = resolve_device(device)
+        name = type(self).__name__
+        self._envelope = stateless(_envelope, f"{name} _envelope",
+                                   self.device)
+        self._autocorr_rho = stateless(_autocorr_rho,
+                                       f"{name} _autocorr_rho", self.device)
+        self._window_fn = stateless(window_fn, f"{name} {window_fn.__name__}",
+                                    self.device)
+
+    @property
+    def steps(self) -> list:
+        """The graphed steps: the two detection statistics and the window
+        function."""
+        return [self._envelope, self._autocorr_rho, self._window_fn]
 
     @property
     def state(self):                   # runtime/decoder compatibility
@@ -82,13 +104,13 @@ class BurstWindowDemodulator:
     def _smooth_len(self) -> int:
         return 8 * getattr(self.cfg, "sps", 20)
 
-    def _put(self, a: np.ndarray) -> torch.Tensor:
-        """A host array onto the demodulator's device."""
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+    def _put(self, a) -> torch.Tensor:
+        """A host array, or a numpy scalar as a 0-d tensor, for the
+        demodulator's steps, which copy it into their static inputs on
+        its device."""
+        return torch.from_numpy(np.ascontiguousarray(a).reshape(np.shape(a)))
 
     def process(self, samples: np.ndarray):
-        from aero_tpu_torch.models.burst_msk import _envelope
-
         cfg = self.cfg
         sps = getattr(cfg, "sps", 20)
         samples = np.asarray(samples, np.float32)
@@ -104,7 +126,8 @@ class BurstWindowDemodulator:
         n_pad = max(16384, -(-n_ring // 16384) * 16384)
         padded = np.zeros(n_pad, np.float32)
         padded[:n_ring] = self._ring
-        env = _host(_envelope(self._put(padded), self._smooth_len()))[:n_ring]
+        env = _host(self._envelope(self._put(padded),
+                                   self._smooth_len()))[:n_ring]
         q25 = float(np.percentile(env, 25.0)) if len(env) else 0.0
         if self._noise_floor <= 0:
             self._noise_floor = max(q25, 1e-12)
@@ -121,7 +144,8 @@ class BurstWindowDemodulator:
         # (measured r3); 256 samples keeps noise max ~0.31 < threshold
         # while staying well under the shortest (96-bit) preamble
         det_smooth = max(16 * sps, 256)
-        rho = _host(_autocorr_rho(self._put(padded), lag, det_smooth))[:n_ring]
+        rho = _host(self._autocorr_rho(self._put(padded), lag,
+                                       det_smooth))[:n_ring]
         det = rho > self.rho_threshold
         min_det = max(6 * sps, det_smooth // 2)
         cands = [s for s, e in _bool_runs(det) if e - s >= min_det]
@@ -209,7 +233,8 @@ class BurstWindowDemodulator:
                 gwin = np.pad(gwin, (0, W - len(gwin)))
             out = self._window_fn(self._put(win),
                                   self._put(gwin.astype(np.float32)),
-                                  self.cfg, np.float32(self.freq_center))
+                                  self.cfg,
+                                  self._put(np.float32(self.freq_center)))
             soft = _host(out["soft"])
             active = _host(out["active"])
             stream = []

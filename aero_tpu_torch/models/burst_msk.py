@@ -116,7 +116,10 @@ def _window_front_end(samples, gate, cfg, freq_center, taps):
                            device=dev).reshape(x.shape)
     gate = (convolve_same(gate, torch.ones(8 * cfg.sps, dtype=torch.float32,
                                            device=dev)) > 0).to(torch.float32)
-    fc = torch.tensor([float(freq_center)], dtype=torch.float32, device=dev)
+    # a tensor (0-d or [1]) stays on the device: a graph reads the center
+    # it is given at each replay, where a Python float would be frozen in
+    fc = torch.as_tensor(freq_center, dtype=torch.float32,
+                         device=dev).reshape(1)
     _, bb = nco_mix(torch.zeros(1, dtype=torch.float32, device=dev),
                     x.to(torch.complex64), fc / cfg.fs, conj=True)
     dfc = _gated_coarse_offset(bb, gate, cfg.nfft, cfg.fb, cfg.fs,
@@ -139,7 +142,8 @@ def burst_msk_window(samples, gate, cfg: BurstMskConfig, freq_center=None):
     windows [B, W] with their gates [B, W] at once, as the JAX function
     under ``vmap`` (tensors on one device; the work runs there).
 
-    ``freq_center`` overrides cfg.freq_center (a signal hunter's retune).
+    ``freq_center`` (a float, or a 0-d tensor as the graphed step takes
+    it) overrides cfg.freq_center (a signal hunter's retune).
     Returns a dict of tensors: soft [n_strobes, 2] float, active
     [n_strobes] bool, freq_offset and tone_quality (0-dim), each with a
     leading [B] for windows [B, W]."""

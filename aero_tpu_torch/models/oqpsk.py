@@ -32,6 +32,7 @@ from aero_tpu_torch.ops.design import root_raised_cosine
 from aero_tpu_torch.ops.fir import fir_apply, fir_apply_fft, fir_init
 from aero_tpu_torch.ops.nco import cis, nco_init, nco_mix
 from aero_tpu_torch.ops.stats import block_agc, msk_ebno
+from aero_tpu_torch.utils.graphs import GraphedStep
 from aero_tpu_torch.models.coarse_freq import (coarse_freq_init,
                                                coarse_freq_estimate)
 from aero_tpu_torch.models.msk import (_chirp_cycles, _circdist,
@@ -291,12 +292,34 @@ def oqpsk_step(state: OqpskState, samples, cfg: OqpskConfig):
 
 
 class OqpskDemodulator:
-    """Host wrapper: one VFO, streaming over blocks, on ``device``."""
+    """Host wrapper: one VFO, streaming over blocks, on ``device``.
+
+    Each block is one graphed ``oqpsk_step`` on [1, block_len]
+    (``utils/graphs.py``; ``cfg`` static): a CUDA-graph replay on a card,
+    captured at the first block, the state in the step's static buffers.
+    ``state`` reads a copy; assigning it writes the buffers in place (a
+    retune captures nothing new)."""
 
     def __init__(self, fs: float, fb: float, device="cuda", **kw):
         self.cfg = make_config(fs, fb, **kw)
         self.device = resolve_device(device)
-        self.state = oqpsk_init(self.cfg, 1, self.device)
+        self._step = GraphedStep(oqpsk_step,
+                                 oqpsk_init(self.cfg, 1, self.device),
+                                 "OqpskDemodulator oqpsk_step")
+
+    @property
+    def state(self):
+        """A copy of the demodulator's state ([1] VFO axis)."""
+        return self._step.snapshot()
+
+    @state.setter
+    def state(self, tree):
+        self._step.state = tree
+
+    @property
+    def steps(self) -> list:
+        """The graphed step (one, as the burst demodulators list theirs)."""
+        return [self._step]
 
     def process(self, samples: np.ndarray):
         """Whole blocks of ``samples``; one dict of numpy outputs (the
@@ -306,15 +329,15 @@ class OqpskDemodulator:
         n = (len(samples) // L) * L
         for i in range(0, n, L):
             blk = torch.from_numpy(np.ascontiguousarray(
-                samples[i:i + L], np.float32))[None].to(self.device)
-            self.state, out = oqpsk_step(self.state, blk, self.cfg)
+                samples[i:i + L], np.float32))[None]
+            out = self._step(blk, self.cfg)
             outs.append({k: v[0].cpu().numpy() for k, v in out.items()})
         return outs
 
     def spectrum(self, nbins: int = 256):
         """Smoothed fold-spectrum snapshot: (freqs_hz, dB)."""
         from aero_tpu_torch.models.coarse_freq import spectrum_display
-        return spectrum_display(self.state.coarse_y[0].cpu().numpy(),
+        return spectrum_display(self._step.state.coarse_y[0].cpu().numpy(),
                                 self.cfg.fs, nbins)
 
 

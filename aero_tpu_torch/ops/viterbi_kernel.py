@@ -20,7 +20,10 @@ chunk multiple; on a card it is bounded by the block's shared memory (the
 stream's soft bytes and one 8-byte decision word per step): ``max_t``
 asks the kernel's library for the bound, and a longer stream raises
 ``ValueError``.  On the CPU the twin takes any T.
-``LAUNCHES`` counts kernel launches.  ``stream_decoder(device)`` wraps the
+``LAUNCHES`` counts kernel launches, through the replays of a CUDA graph
+that captured the wrapper too (``utils/graphs.py:count_launch``: a replay
+runs no host code, so the capture records the launch and each replay
+counts it).  ``stream_decoder(device)`` wraps the
 wrapper for one numpy stream, the R/T framer's checkpoint decodes (B=1,
 T = rows*32); ``soft_to_bytes`` is the host check both host callers make
 before a stream goes to the card as bytes.
@@ -38,6 +41,7 @@ import numpy as np
 import torch
 
 from aero_tpu_torch.protocol.viterbi import viterbi_decode_soft
+from aero_tpu_torch.utils.graphs import count_launch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "viterbi.cu")
@@ -53,6 +57,11 @@ _max_t = {}           # device index -> the largest T the kernel takes
 def reset_launches() -> None:
     global LAUNCHES
     LAUNCHES = 0
+
+
+def _count_launch() -> None:
+    global LAUNCHES
+    LAUNCHES += 1
 
 
 def _nvcc() -> str:
@@ -117,8 +126,9 @@ def max_t(device) -> int:
 def viterbi_decode_soft_cuda(soft: torch.Tensor) -> torch.Tensor:
     """Batched soft Viterbi: soft bytes [B, 2T] -> bits [B, T] uint8.
     CPU tensor (uint8 or float32): plain-torch twin.  CUDA tensor (uint8
-    only): the kernel."""
-    global LAUNCHES
+    only): the kernel.  The shared-memory bound is queried once per device
+    and cached, so a CUDA-graph capture after one eager call (the graphed
+    steps' warm-up) asks the device nothing."""
     if not isinstance(soft, torch.Tensor):
         raise TypeError(f"expected a torch.Tensor, got {type(soft)!r}")
     if soft.device.type == "cpu":
@@ -146,7 +156,7 @@ def viterbi_decode_soft_cuda(soft: torch.Tensor) -> torch.Tensor:
         err = fn(soft.data_ptr(), B, T, bits.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"viterbi kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
+    count_launch(_count_launch)
     return bits
 
 

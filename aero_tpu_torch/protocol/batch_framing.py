@@ -14,6 +14,12 @@ frames, from many VFOs and/or many frames per VFO, decode in one call:
 
 Host code only finds UW alignments and slices frames.  Trellis continuity
 across frames is kept by passing each frame's 62-soft-bit history prefix.
+
+``BatchPChannelFramerBank`` runs the decode as a graphed step
+(``utils/graphs.py``), the counterpart of JAX's jit with ``rate``,
+``use_pallas`` and ``pre_deinterleaved`` static: on a card one CUDA graph
+per (rate, padded N) -- the bank pads N to a power of two, so a run
+captures a handful -- whose replay launches the Viterbi kernel.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from aero_tpu_torch.protocol.interleaver import deinterleave_indices
 from aero_tpu_torch.protocol.framing import FRAME_SPECS
 from aero_tpu_torch.ops.viterbi_kernel import (soft_to_bytes,
                                                viterbi_decode_soft_cuda)
+from aero_tpu_torch.utils.graphs import stateless
 
 HISTORY = 62
 LOOKAHEAD = 48
@@ -51,6 +58,8 @@ def _crc_matrix(nbits: int = 80):
 
 @functools.lru_cache(maxsize=None)
 def _crc_on(device):
+    """The CRC map on ``device``, built once (before a capture: a host
+    copy inside one would fail it)."""
     M, c0 = _crc_matrix(80)
     return torch.from_numpy(M).to(device), torch.from_numpy(c0).to(device)
 
@@ -135,7 +144,8 @@ class BatchPChannelFramerBank:
     ``batch_decode_p_frames`` call on ``device`` and replays each framer's
     bookkeeping in order — the JAX bank's semantics, with the decode call
     swapped (see the JAX docstring for the equivalence with sequential
-    framing).
+    framing).  The call is ``_decode``, a graphed step: a CUDA-graph
+    replay per (rate, padded N) on a card.
     """
 
     def __init__(self, rate: int, topics, use_pallas: bool = False,
@@ -144,6 +154,9 @@ class BatchPChannelFramerBank:
         self.rate = rate
         self.use_pallas = use_pallas
         self.device = torch.device(device)
+        self._decode = stateless(batch_decode_p_frames,
+                                 f"batch_decode_p_frames rate {rate}",
+                                 self.device)
         self.framers = {}
         for t in topics:
             f = PChannelFramer(rate)
@@ -151,12 +164,13 @@ class BatchPChannelFramerBank:
             self.framers[t] = f
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        """Soft values to the bank's device: uint8 bytes for the kernel on
-        a card (whole numbers in 0..255, checked here on the host), float32
-        for the twin on the CPU."""
+        """Soft values as a host tensor for the bank's device, which
+        ``_decode`` copies into its static input there: uint8 bytes for the
+        kernel on a card (whole numbers in 0..255, checked here on the
+        host), float32 for the twin on the CPU."""
         if self.device.type == "cpu":
             return torch.from_numpy(np.ascontiguousarray(a, np.float32))
-        return torch.from_numpy(soft_to_bytes(a)).to(self.device)
+        return torch.from_numpy(soft_to_bytes(a))
 
     def feed(self, rows: dict) -> dict:
         """rows: {topic: soft float array}.  Queues frames per topic, then
@@ -195,7 +209,7 @@ class BatchPChannelFramerBank:
                     [prefixes,
                      np.full((n_pad - n,) + prefixes.shape[1:], 128.0,
                              prefixes.dtype)])
-            dec = batch_decode_p_frames(
+            dec = self._decode(
                 self._tensor(soft), self._tensor(prefixes), rate=self.rate,
                 use_pallas=self.use_pallas, pre_deinterleaved=True)
             info_bits = dec["info_bits"].cpu().numpy()

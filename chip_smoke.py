@@ -120,17 +120,29 @@ and banks' device steps run as CUDA-graph replays, the port's default):
 
 14. The device steps as CUDA-graph replays (``aero_tpu_torch/utils/
     graphs.py``; every phase above runs them graphed, the default): the
-    L band, the C band, the classic 54W, the L band over two shards and
-    the bench's station at 8 blocks per step with 2 steps in flight, each
-    run eager (``device.disable_graphs()``), graphed and eager again on
-    the same input; the graphed run must give the eager run's packed
-    buffers, telemetry, ACARS, voice file, channelizer payloads and bank
-    outputs byte for byte (unless the two eager runs already differ),
-    with one capture per step object (the classic hunters' retunes
-    capture nothing new).  Then each path's times in both modes in turns
-    (eager, graphed, graphed, eager): the serial block's stages, the step
-    alone (host enqueue, CUDA events, device operations, graph launches,
-    device time, idle share) and the captures.
+    stations' steps, and the steps of their drains and host loops (the
+    framer banks' batched P decodes, whose replays launch the Viterbi
+    kernel and count its launches, the burst watchers' detection
+    statistics and window demods), the filterbank backend's groups and
+    the single-VFO demodulators.  The L band, the C band, the classic
+    54W, the ``--backend pfb`` station of phase 9, the L band over two
+    shards, the bench's station at 8 blocks per step with 2 steps in
+    flight and ``decode_main`` on the three fixtures (a retune after
+    block 3; the parity of phase 12), each run eager
+    (``device.disable_graphs()``), graphed and eager again on the same
+    input; the graphed run must give the eager run's packed buffers,
+    telemetry, batched decodes, burst outputs, ACARS, voice file,
+    channelizer payloads, bank outputs and demodulated blocks byte for
+    byte (unless the two eager runs already differ), with one capture
+    per device step object (the classic hunters' and the decoder's
+    retunes capture nothing new) and one per key of each drain step.
+    Then each path's times in both modes in turns (eager, graphed,
+    graphed, eager): the serial block's stages with the drain split by
+    stage (D2H, batched decode, burst statistics, window demods,
+    framers), the step alone (host enqueue, CUDA events, device
+    operations, graph launches, device time, idle share) and the
+    captures, the filterbank station's channelizer and the decoder's
+    block.
 
 The last two lines of standard output are the kernels' JSON record and the
 result line ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -157,7 +169,7 @@ import torch
 
 from aero_tpu_torch import bench, convert, native
 from aero_tpu_torch.channelizer import load_ini
-from aero_tpu_torch.channelizer.pfb import pfb_channelize
+from aero_tpu_torch.channelizer.pfb import PfbChannelizer, pfb_channelize
 from aero_tpu_torch.device import (disable_graphs, graphs_enabled,
                                    set_fp32_precision)
 from aero_tpu_torch.models.msk import msk_modulate
@@ -627,38 +639,124 @@ def phase_cband(card: str, workdir: str) -> dict:
             "iq": iq, "layout": layout, "content": content}
 
 
+DRAIN_STAGES = ("D2H", "batched decode", "burst statistics",
+                "window demods", "framers")
+
+
+@contextlib.contextmanager
+def drain_split(st, split: dict):
+    """Inside, each drain of the fused station ``st`` is timed by stage
+    on the host clock, one entry per drain into ``split`` (stage -> ms):
+    the packed buffer's copy back (D2H); the framer banks' batched decodes,
+    the burst watchers' detection statistics and their window demods
+    (each graphed step, or its eager ops, from the upload of its inputs to
+    a synchronize); and the framers, the rest of the drain (UW search,
+    bookkeeping, R/T framing, SU dispatch).  ``split["windows"]`` counts
+    the windows demodulated."""
+    spent = dict.fromkeys(DRAIN_STAGES[1:4], 0.0)
+    calls = {"windows": 0}
+
+    class Timed:
+        """The step, timed; its attributes (captures, keys, name) read
+        through."""
+
+        def __init__(self, step, stage):
+            self.step, self.stage = step, stage
+
+        def __getattr__(self, name):
+            return getattr(self.step, name)
+
+        def __call__(self, *args, **kw):
+            t0 = time.perf_counter()
+            out = self.step(*args, **kw)
+            torch.cuda.synchronize()
+            spent[self.stage] += time.perf_counter() - t0
+            calls["windows"] += self.stage == "window demods"
+            return out
+    saved = [(bank, "_decode") for bank in st._batch_banks.values()]
+    saved += [(dm, a) for dm in st.burst_demods.values()
+              for a in ("_envelope", "_autocorr_rho", "_window_fn")]
+    saved = [(obj, a, getattr(obj, a)) for obj, a in saved]
+    for obj, a, step in saved:
+        setattr(obj, a, Timed(step, {"_decode": "batched decode",
+                                     "_window_fn": "window demods"}.get(
+                                         a, "burst statistics")))
+    had = "_drain" in vars(st)
+    drain = st._drain
+
+    def timed_drain(packed):
+        for k in spent:
+            spent[k] = 0.0
+        calls["windows"] = 0
+        t0 = time.perf_counter()
+        host = packed.cpu()
+        t1 = time.perf_counter()
+        drain(host)
+        t2 = time.perf_counter()
+        rest = (t2 - t1) - sum(spent.values())
+        for k, v in zip(DRAIN_STAGES, (t1 - t0, *spent.values(), rest)):
+            split.setdefault(k, []).append(1e3 * v)
+        split.setdefault("windows", []).append(calls["windows"])
+    st._drain = timed_drain
+    try:
+        yield split
+    finally:
+        if had:
+            st._drain = drain
+        else:
+            del st._drain
+        for obj, a, step in saved:
+            setattr(obj, a, step)
+
+
+def split_text(split: dict) -> str:
+    """A drain split as text: each stage's median and mean ms per drain,
+    and the windows' ms each."""
+    parts = [f"{k} {float(np.median(split[k])):.3f} / "
+             f"{float(np.mean(split[k])):.3f}" for k in DRAIN_STAGES]
+    n = sum(split["windows"])
+    if n:
+        parts.append(f"{n} windows, {sum(split['window demods']) / n:.3f} "
+                     "ms each")
+    return "ms median / mean per drain: " + ", ".join(parts)
+
+
 def stage_times(st, wide, card: str, label: str) -> dict:
     """Where a warm station's block goes, on the blocks of ``wide``.
 
     Serially per block, on the host clock: quantize, device step (upload
     and one step, up to a synchronize) and drain (the packed buffer's copy
-    back, host framing, burst windows and decodes).  Then the step alone
-    on the last block (``step_times``).  The station's sinks are silenced
-    first (the run that fed them is over).  Returns the medians and the
+    back, host framing, burst windows and decodes), the drain split by
+    stage (``drain_split``).  Then the step alone on the last block
+    (``step_times``).  The station's sinks are silenced first (the run
+    that fed them is over).  Returns the medians, the split and the
     step's figures."""
     st.flush()
     st.on_acars = lambda *a: None
     st.on_voice = lambda *a: None
     L = st.block_len
     times = {"quantize": [], "device step": [], "drain": []}
-    for b in range(len(wide) // L):
-        t0 = time.perf_counter()
-        q = st.quantize(wide[b * L:(b + 1) * L])
-        t1 = time.perf_counter()
-        st._pending.append(q if isinstance(q, tuple) else (q, np.float32(1)))
-        st._dispatch()
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        st._drain(st._inflight.popleft())
-        t3 = time.perf_counter()
-        for name, dt in zip(times, (t1 - t0, t2 - t1, t3 - t2)):
-            times[name].append(1e3 * dt)
+    with drain_split(st, {}) as split:
+        for b in range(len(wide) // L):
+            t0 = time.perf_counter()
+            q = st.quantize(wide[b * L:(b + 1) * L])
+            t1 = time.perf_counter()
+            st._pending.append(q if isinstance(q, tuple)
+                               else (q, np.float32(1)))
+            st._dispatch()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            st._drain(st._inflight.popleft())
+            t3 = time.perf_counter()
+            for name, dt in zip(times, (t1 - t0, t2 - t1, t3 - t2)):
+                times[name].append(1e3 * dt)
     mode = "graphed" if graphs_enabled() else "eager"
     log(f"{label} block of {L} samples ({mode}), median of {len(wide) // L} "
         "warm blocks, serial: " + ", ".join(
             f"{k} {float(np.median(v)):.3f} ms" for k, v in times.items())
-        + f" ({card})")
+        + f"; drain split, {split_text(split)} ({card})")
     out = {k: float(np.median(v)) for k, v in times.items()}
+    out["split"] = split
     out.update(step_times(st, q, card, label))
     return out
 
@@ -1410,9 +1508,12 @@ def _canon(obj) -> str:
 
 def _fused_run(argv, prepare=None) -> tuple:
     """``station_main`` over ``argv`` with each drained packed buffer,
-    the telemetry after each drain and the ACARS recorded; returns (the
-    record, the station)."""
-    rec = {"packed": [], "telemetry": []}
+    the telemetry after each drain, each batched decode's bits and CRC
+    flags per frame, each burst watcher's outputs (soft bits, frequency,
+    tone quality) and the ACARS recorded; returns (the record, the
+    station)."""
+    rec = {"packed": [], "telemetry": [], "frames": [], "bursts": [],
+           "captured": []}
 
     def hook(st):
         if prepare is not None:
@@ -1423,27 +1524,167 @@ def _fused_run(argv, prepare=None) -> tuple:
             rec["packed"].append(packed.cpu().numpy())
             _drain(packed)
             rec["telemetry"].append(_canon(st.vfo_telemetry()))
+            _mark_captures(st, rec, len(rec["packed"]))
         st._drain = recording
+        for bank in st._batch_banks.values():
+            for topic, framer in bank.framers.items():
+                def finish(pre, info, su_ok, _f=framer._finish_frame,
+                           _t=topic):
+                    rec["frames"].append((_t, bytes(info),
+                                          np.asarray(su_ok).tobytes()))
+                    return _f(pre, info, su_ok)
+                framer._finish_frame = finish
+        _record_bursts(st, rec)
     box, heard = {}, []
     run_station_main(argv, box, heard, {}, prepare=hook)
     rec["acars"] = heard
     return rec, box["st"]
 
 
+def _record_bursts(st, rec: dict) -> None:
+    """Record each burst watcher's outputs (soft bits, frequency, tone
+    quality) into ``rec["bursts"]``."""
+    for topic, dm in st.burst_demods.items():
+        def process(samples, _p=dm.process, _t=topic):
+            outs = _p(samples)
+            rec["bursts"] += [(_t, o["soft_bits"].tobytes(), repr(o["freq"]),
+                               repr(o["tone_quality"])) for o in outs]
+            return outs
+        dm.process = process
+
+
+def _mark_captures(st, rec: dict, unit: int) -> None:
+    """Note in ``rec["captured"]`` the step objects of ``st`` (by name:
+    device and drain steps) that captured since the last note, at drain
+    or block ``unit`` (counted from 1)."""
+    now = {}
+    for s in (*device_steps(st), *drain_steps(st).values()):
+        now[s.name] = now.get(s.name, 0) + s.captures
+    seen = rec.get("seen", {})
+    new = {k: v - seen.get(k, 0) for k, v in now.items()
+           if v > seen.get(k, 0)}
+    if new:
+        rec["captured"].append((unit, new))
+    rec["seen"] = now
+
+
+def _capture_timeline(rec: dict) -> str:
+    """``rec["captured"]`` as text: each drain or block with a capture,
+    and what captured there."""
+    return "; ".join(f"{u}: " + ", ".join(f"{k} {n}" for k, n in new.items())
+                     for u, new in rec.get("captured", ())) or "none"
+
+
+# the single-VFO decoder's retune in phase 14: after this many blocks
+DECODE_RETUNE_BLOCK = 3
+
+
+def _decode_main_run(fixture: str) -> tuple:
+    """``decode_main`` in-process on cuda on a fixture of tests/fixtures,
+    with each demodulated block's outputs and the jsondump records
+    (timestamps aside) recorded, and a retune in the stream: after block
+    ``DECODE_RETUNE_BLOCK`` the decoder's ``_set_center`` retunes the
+    demodulator to the frequency it tracks (mse, slope and clock carries
+    reset, as a hunter's retune does).  Its ACARS must reach the
+    fixture's parity of phase 12.  Returns (the record, the decoder)."""
+    from aero_tpu_torch.runtime import decode_main, decoder as decoder_mod
+    rate, least = PARITY_FIXTURES[fixture]
+    base = os.path.join(ROOT, "tests", "fixtures", fixture)
+    rec = {"blocks": [], "acars": [], "captured": []}
+    box = {}
+    plain = decoder_mod.Decoder
+
+    class Recorded(plain):
+        def __init__(self, opts):
+            super().__init__(opts)
+            box["dec"] = self
+
+        def _consume(self, out):
+            rec["blocks"].append(b"".join(
+                np.ascontiguousarray(out[k]).tobytes() for k in sorted(out)))
+            _mark_captures(self, rec, len(rec["blocks"]))
+            if len(rec["blocks"]) == DECODE_RETUNE_BLOCK:
+                self._set_center(float(self.demod.state.freq[0]))
+            super()._consume(out)
+    out = io.StringIO()
+    decoder_mod.Decoder = Recorded
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = decode_main.main([
+                "-b", str(rate), "--input-file", base + ".wav", "--device",
+                "cuda", "--format", "jsondump", "-s", "CHIP-SMOKE"])
+    finally:
+        decoder_mod.Decoder = plain
+    torch.cuda.synchronize()
+    lines = [ln for ln in out.getvalue().splitlines() if ln.startswith("{")]
+    got = tpc.parity(lines, base + ".expected.jsonl")
+    if rc != 0 or got["parity_pct"] < least:
+        raise AssertionError(f"decode_main {fixture}: rc {rc}, parity {got}")
+    for ln in lines:
+        r = json.loads(ln)
+        r.pop("t", None)
+        rec["acars"].append(_canon(r))
+    rec["parity"] = got["parity_pct"]
+    return rec, box["dec"]
+
+
+def device_steps(st) -> list:
+    """The graphed device steps of a station (one key each: the captures
+    ``st.captures`` counts) or of a single-VFO decoder (its
+    demodulator's)."""
+    if isinstance(st, FusedStation):
+        return list(st._steps)
+    if not hasattr(st, "channelizer"):
+        return list(st.demod.steps)
+    ch = st.channelizer
+    groups = (list(ch._steps.values()) if isinstance(ch, PfbChannelizer)
+              else [*ch._main_steps.values(), *ch._sub_steps.values()])
+    return groups + [s for b in st.banks.values() for s in b._steps]
+
+
+def drain_steps(st) -> dict:
+    """The graphed steps a station runs in its drain or host loop, by
+    name: each framer bank's batched decode (a key per padded batch) and
+    each burst watcher's detection statistics (a key per ring bucket) and
+    window function (one key)."""
+    out = {f"{key} {bank._decode.name}": bank._decode
+           for key, bank in getattr(st, "_batch_banks", {}).items()}
+    for topic, dm in getattr(st, "burst_demods", {}).items():
+        out.update({f"{topic} {s.name}": s for s in dm.steps})
+    return out
+
+
+def _captures_text(steps: dict) -> str:
+    """Captures by step name (a family: its watchers' or banks' steps
+    together), with the step objects and keys."""
+    fams = {}
+    for s in steps.values():
+        c = fams.setdefault(s.name, [0, 0, 0])
+        c[0] += s.captures
+        c[1] += 1
+        c[2] += s.keys
+    return "; ".join(f"{f}: {c} captures in {n} objects, {k} keys"
+                     for f, (c, n, k) in fams.items()) or "none"
+
+
 def _classic_run(argv) -> tuple:
-    """``station_main --backend tree`` with the channelizer's payloads,
-    every bank output and the ACARS recorded, and the hunters' retunes
+    """``station_main`` with the classic station (``--backend tree`` or
+    ``pfb``): the channelizer's payloads, every bank output, the burst
+    watchers' outputs and the ACARS recorded, and the hunters' retunes
     counted; returns (the record, the station)."""
-    rec = {"channelizer": [], "banks": [], "retunes": 0}
+    rec = {"channelizer": [], "banks": [], "bursts": [], "retunes": 0,
+           "captured": []}
 
     def hook(st):
         process = st.channelizer.process
 
         def channelizer(iq, _p=process):
+            _mark_captures(st, rec, len(rec["channelizer"]))
             out = _p(iq)
             rec["channelizer"].append(out)
             return out
         st.channelizer.process = channelizer
+        _record_bursts(st, rec)
         for key, bank in st.banks.items():
             def step(x, _p=bank.process_block, _k=key):
                 out = _p(x)
@@ -1457,6 +1698,7 @@ def _classic_run(argv) -> tuple:
             bank.process_block, bank.retune = step, retune
     box, heard = {}, []
     run_station_main(argv, box, heard, {}, prepare=hook)
+    _mark_captures(box["st"], rec, len(rec["channelizer"]))
     rec["acars"] = heard
     return rec, box["st"]
 
@@ -1490,7 +1732,7 @@ def _differences(a: dict, b: dict) -> list:
     equal)."""
     out = []
     for k in a:
-        if k in ("retunes", "depth"):
+        if k in ("retunes", "depth", "captured", "seen"):
             continue
         x, y = a[k], b[k]
         if k == "packed":
@@ -1514,25 +1756,34 @@ def _differences(a: dict, b: dict) -> list:
 def phase_graphs(card: str, workdir: str, lband: dict, cband: dict,
                  classic: dict) -> None:
     """Graphed against eager on every path: the L band, the C band, the
-    classic 54W, the L band over two shards and the bench's 8-per-step,
-    depth-2 station, each run eager, graphed and eager again on the same
-    input: the graphed run must equal the eager one byte for byte (packed
-    buffers, telemetry after every drain, ACARS in order, the C band's
-    voice file, the classic channelizer's payloads and bank outputs),
-    unless two eager runs already differ, and every step object must
-    have been captured once (the hunters' retunes recapture nothing).
-    Then each path's times in both modes, in turns (eager, graphed,
-    graphed, eager): the serial block's stages, the step alone (host
-    enqueue, CUDA events, the profiler's device operations, graph launches
-    and device time, the idle share) and the captures."""
+    classic 54W, the filterbank station of phase 9, the L band over two
+    shards, the bench's 8-per-step, depth-2 station and ``decode_main``
+    on the three fixtures with a retune in the stream, each run eager,
+    graphed and eager again on the same input: the graphed run must equal
+    the eager one byte for byte (packed buffers, telemetry after every
+    drain, each batched decode's bits and CRC flags, each burst window's
+    outputs, ACARS in order, the C band's voice file, the classic
+    channelizers' payloads and bank outputs, the decoder's every block),
+    unless two eager runs already differ; every device step object must
+    have been captured once (the hunters' and the decoder's retunes
+    recapture nothing), and every step of a drain (batched decodes, burst
+    statistics and windows) once per key.  Then each path's times in both
+    modes, in turns (eager, graphed, graphed, eager): the serial block's
+    stages with the drain split by stage, the step alone (host enqueue,
+    CUDA events, the profiler's device operations, graph launches and
+    device time, the idle share) and the captures; the filterbank
+    station's channelizer and the decoder's block."""
     fused = ["--backend", "fused", "--batch-framing", "--device", "cuda",
              "--ingest-dtype", "int4", "--format", "jsondump", "-s",
              "CHIP-SMOKE", "--stats-every", "1e9"]
     l_argv = ["-c", lband["ini"], "--iq-file", lband["iq"]] + fused
     voices = iter(range(100))
+    classic_flags = ["--device", "cuda", "--format", "jsondump", "-s",
+                     "CHIP-SMOKE", "--stats-every", "1e9"]
     k_argv = ["-c", l54.INI_PATH, "--iq-file", classic["paths"]["w"],
-              "--backend", "tree", "--device", "cuda", "--format",
-              "jsondump", "-s", "CHIP-SMOKE", "--stats-every", "1e9"]
+              "--backend", "tree"] + classic_flags
+    p_argv = ["-c", lband["ini"], "--iq-file", lband["iq"], "--backend",
+              "pfb"] + classic_flags
     rng = np.random.default_rng(12)
     probe = FusedStation(load_ini(bench.bank_ini(50), is_text=True),
                          ingest_dtype="int4", device="cpu")
@@ -1552,50 +1803,69 @@ def phase_graphs(card: str, workdir: str, lband: dict, cband: dict,
         "L band": lambda: _fused_run(l_argv),
         "C band": c_run,
         "classic 54W": lambda: _classic_run(k_argv),
+        "pfb": lambda: _classic_run(p_argv),
         "L band, 2 shards": lambda: _fused_run(
             l_argv, prepare=lambda st: st.shard(card_mesh(2))),
         "bench 8 per step, depth 2": lambda: _bench_run(blocks),
     }
+    paths.update({f"decode_main {fx}": (lambda fx=fx: _decode_main_run(fx))
+                  for fx in PARITY_FIXTURES})
     stations = {}
     for name, run in paths.items():
         t0 = time.perf_counter()
-        recs = {}
+        recs, drains = {}, {}
         for i, mode in enumerate(("eager", "graphed", "eager")):
             with _mode(mode):
                 recs[i], st = run()
             torch.cuda.synchronize()
+            drains[mode] = drain_steps(st)
             if mode == "graphed":
                 stations[name] = st
-        steps = (st._steps if isinstance(st, FusedStation) else
-                 [*st.channelizer._main_steps.values(),
-                  *st.channelizer._sub_steps.values(),
-                  *(s for b in st.banks.values() for s in b._steps)])
         g = stations[name]
+        steps = device_steps(g)
+        captures = sum(s.captures for s in steps)
         eager_eager = _differences(recs[0], recs[2])
         graph_eager = _differences(recs[1], recs[0])
         extra = (f", {recs[1]['retunes']} hunter retunes"
                  if "retunes" in recs[1] else "")
         extra += (f", {recs[1]['depth']} dispatches in flight at most"
                   if "depth" in recs[1] else "")
+        extra += (f", {len(recs[1]['frames'])} batch-decoded frames, "
+                  f"{len(recs[1]['bursts'])} burst outputs"
+                  if "frames" in recs[1] else "")
+        extra += (f", a retune after block {DECODE_RETUNE_BLOCK}, parity "
+                  f"{recs[1]['parity']}%" if "parity" in recs[1] else "")
+        n_units = len(recs[1].get("packed", recs[1].get(
+            "channelizer", recs[1].get("blocks"))))
         log(f"graphs, {name}: graphed vs eager "
             f"{graph_eager or 'byte for byte equal'}; eager vs eager "
-            f"{eager_eager or 'byte for byte equal'}; "
-            f"{len(recs[1].get('packed', recs[1].get('channelizer')))} "
-            f"drains or blocks, {len(recs[1]['acars'])} ACARS; captures "
-            f"{g.captures} for {len(steps)} step objects{extra} "
+            f"{eager_eager or 'byte for byte equal'}; {n_units} drains or "
+            f"blocks, {len(recs[1]['acars'])} ACARS; captures {captures} "
+            f"for {len(steps)} device step objects{extra}; drain steps: "
+            f"{_captures_text(drains['graphed'])}; captured at drain or "
+            f"block: {_capture_timeline(recs[1])} "
             f"({time.perf_counter() - t0:.1f} s; {card})")
         if graph_eager and not eager_eager:
             raise AssertionError(f"{name}: graphed differs from eager: "
                                  f"{graph_eager}")
-        if g.captures != len(steps):
-            raise AssertionError(f"{name}: {g.captures} captures for "
+        if captures != len(steps):
+            raise AssertionError(f"{name}: {captures} captures for "
                                  f"{len(steps)} steps")
+        twice = [k for k, s in drains["graphed"].items()
+                 if s.captures != s.keys]
+        eager_captured = [k for k, s in drains["eager"].items() if s.captures]
+        if twice or eager_captured:
+            raise AssertionError(f"{name}: drain steps captured twice for a "
+                                 f"key {twice}, or eagerly {eager_captured}")
+        if "frames" in recs[1] and not any(
+                s.captures for s in drains["graphed"].values()):
+            raise AssertionError(f"{name}: no drain step was graphed")
         if "depth" in recs[1] and recs[1]["depth"] < 2:
             raise AssertionError(f"{name}: never two dispatches in flight")
     os.remove(cband["iq"])
 
     # times, in turns
-    wide = {"L band": make_wideband(lband["block_len"], 4, seed=9),
+    wide = {"L band": make_wideband(lband["block_len"], 6, seed=9),
             "C band": cband_wideband(FS, cband["layout"], cband["content"],
                                      6 * stations["C band"].block_len,
                                      seed=8)}
@@ -1615,6 +1885,10 @@ def phase_graphs(card: str, workdir: str, lband: dict, cband: dict,
                     stage_times(st, wide[name], card, name)
                 elif name == "classic 54W":
                     classic_stage_times(st, k_wide, card, name)
+                elif name == "pfb":
+                    classic_stage_times(st, wide["L band"], card, name)
+                elif name.startswith("decode_main"):
+                    decoder_times(st, name.split()[1], card)
                 else:
                     q = blocks[0] if name.startswith("bench") else \
                         st.quantize(wide["L band"][: st.block_len])
@@ -1630,6 +1904,45 @@ def phase_graphs(card: str, workdir: str, lband: dict, cband: dict,
     if retunes[0] == 0 or k_st.captures != captures:
         raise AssertionError(f"classic 54W: {retunes[0]} retunes, captures "
                              f"{captures} -> {k_st.captures}")
+    for name, st in stations.items():
+        twice = [k for k, s in drain_steps(st).items() if s.captures != s.keys]
+        if twice or sum(s.captures for s in device_steps(st)) != len(
+                device_steps(st)):
+            raise AssertionError(f"{name}: recaptured while timed: {twice}")
+
+
+def decoder_times(dec, fixture: str, card: str) -> None:
+    """The single-VFO decoder's time per block on a fixture, fed again to
+    the decoder of a ``decode_main`` run (warm; its graph, in a graphed
+    run, captured): the demodulator's step with its outputs copied back,
+    and the whole ``feed_audio`` of the block (with the host framing, SU
+    dispatch and ACARS out), medians over the blocks, host clock."""
+    import wave
+    with wave.open(os.path.join(ROOT, "tests", "fixtures",
+                                fixture + ".wav"), "rb") as w:
+        rate, data = w.getframerate(), w.readframes(w.getnframes())
+    L = dec.demod.cfg.block_len
+    demod_ms, block_ms = [], []
+    process = dec.demod.process
+
+    def timed(x):
+        t0 = time.perf_counter()
+        out = process(x)
+        demod_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+    dec.demod.process = timed
+    with contextlib.redirect_stdout(io.StringIO()):
+        for b in range(len(data) // (2 * L)):
+            t0 = time.perf_counter()
+            dec.feed_audio(data[2 * L * b: 2 * L * (b + 1)], rate)
+            block_ms.append(1e3 * (time.perf_counter() - t0))
+    del dec.demod.process
+    mode = "graphed" if graphs_enabled() else "eager"
+    log(f"decode_main {fixture} ({mode}): block of {L} samples at {rate} "
+        f"S/s ({1e3 * L / rate:.1f} ms of audio), median of "
+        f"{len(block_ms)}: demodulator {float(np.median(demod_ms)):.3f} ms, "
+        f"feed_audio {float(np.median(block_ms)):.3f} ms; captures "
+        f"{sum(s.captures for s in dec.demod.steps)} ({card})")
 
 
 def main() -> int:

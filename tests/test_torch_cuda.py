@@ -595,3 +595,185 @@ def test_capture_with_a_host_sync_raises(cuda):
                          cwd=root, env=env)
     assert "RAISED" in res.stdout, (res.stdout, res.stderr[-2000:])
     assert "the syncing step" in res.stdout
+
+
+def _eager_then_graphed(run):
+    """``run()`` inside ``device.disable_graphs()``, then graphed."""
+    from aero_tpu_torch.device import disable_graphs
+    with disable_graphs():
+        eager = run()
+    return eager, run()
+
+
+def _same_outputs(a, b):
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert x.keys() == y.keys()
+        for k in x:
+            np.testing.assert_array_equal(np.asarray(x[k]), np.asarray(y[k]),
+                                          err_msg=k)
+
+
+def test_graphed_batch_decode_equals_eager_and_counts_launches(cuda):
+    """The framer bank's batched decode as a CUDA graph per padded N: the
+    eager run's bits and CRC flags byte for byte (and the CPU twin's),
+    the Viterbi kernel launched from inside the graph and counted at
+    each replay, as many launches as the eager run, one capture per N."""
+    from aero_tpu_torch.protocol.batch_framing import BatchPChannelFramerBank
+    from aero_tpu_torch.protocol.framing import FRAME_SPECS
+    n_soft = FRAME_SPECS[1200].payload_soft_bits
+    rng = np.random.default_rng(6)
+    batches = [(rng.integers(0, 256, (n, n_soft)).astype(np.float32),
+                rng.integers(0, 256, (n, 62)).astype(np.float32))
+               for n in (4, 8, 4, 8, 1)]
+    kw = dict(rate=1200, use_pallas=False, pre_deinterleaved=True)
+
+    def run(device=cuda):
+        bank = BatchPChannelFramerBank(1200, [], device=device)
+        vk.reset_launches()
+        outs = [{k: v.cpu().numpy() for k, v in bank._decode(
+            bank._tensor(p), bank._tensor(q), **kw).items()}
+            for p, q in batches]
+        return outs, vk.LAUNCHES, bank._decode
+    (eager, e_launches, e_step), (graphed, g_launches, g_step) = \
+        _eager_then_graphed(run)
+    _same_outputs(graphed, eager)
+    _same_outputs(graphed, run("cpu")[0])
+    assert e_launches == g_launches == len(batches)
+    assert e_step.captures == 0
+    assert g_step.captures == g_step.keys == 3 and g_step.replays == 5
+
+
+def _r_bursts(fs, fb, seed):
+    """Two R bursts in noise (10 dB), 80,000 samples."""
+    from aero_tpu_torch.models.msk import msk_modulate
+    from aero_tpu_torch.protocol.rt_framing import build_r_burst
+    info = (bytes([0x1B, 0x28, 0x0A, 0x0B, 0x0C, 0x77]) + b"GRAPHED BST"
+            ).ljust(17, b"\0")[:17]
+    burst = msk_modulate(build_r_burst(info, preamble_bits=96), fs, fb,
+                         freq=fs / 4.0 + 70.0, amplitude=0.3)
+    x = np.zeros(80000, np.float32)
+    x[9000:9000 + len(burst)] += burst
+    x[47000:47000 + len(burst)] += burst
+    rng = np.random.default_rng(seed)
+    return x + rng.normal(0, np.sqrt(np.mean(burst ** 2) / 10),
+                          len(x)).astype(np.float32)
+
+
+def test_graphed_burst_demod_equals_eager_across_set_center(cuda):
+    """A burst MSK demodulator's detection statistics and window function
+    as CUDA graphs: the eager run's windows byte for byte across a
+    ``set_center`` between the two bursts (the center is an input of the
+    window graph: no capture after the retune), each key captured once."""
+    from aero_tpu_torch.models.burst_msk import BurstMskDemodulator
+    fs, fb = 12000.0, 600.0
+    x = _r_bursts(fs, fb, seed=2)
+
+    def run():
+        dm = BurstMskDemodulator(fs, fb, device=cuda)
+        outs, windows = [], 0
+        for i in range(0, len(x), 16000):
+            if i == 32000:
+                windows = dm._window_fn.captures
+                dm.set_center(fs / 4.0 + 90.0)
+            outs += dm.process(x[i:i + 16000])
+        return outs, dm, windows
+    (eager, edm, _), (graphed, gdm, before) = _eager_then_graphed(run)
+    _same_outputs(graphed, eager)
+    assert sum(o["burst"] for o in graphed) == 2
+    assert all(s.captures == 0 for s in edm.steps)
+    assert all(s.captures == s.keys > 0 for s in gdm.steps)
+    assert before == gdm._window_fn.captures == 1
+
+
+@pytest.mark.parametrize("kind", ["msk", "oqpsk"])
+def test_graphed_window_step_equals_eager(cuda, kind):
+    """The window function alone, MSK and OQPSK, at two centers through
+    one graph: the eager bytes."""
+    from aero_tpu_torch.models.burst_msk import BurstMskDemodulator
+    from aero_tpu_torch.models.burst_oqpsk import BurstOqpskDemodulator
+    fs, fb, cls = ((12000.0, 600.0, BurstMskDemodulator) if kind == "msk"
+                   else (48000.0, 10500.0, BurstOqpskDemodulator))
+    rng = np.random.default_rng(3)
+
+    def run():
+        dm = cls(fs, fb, device=cuda)
+        W = dm.cfg.window_len
+        win = rng.standard_normal(W).astype(np.float32)
+        gate = np.zeros(W, np.float32)
+        gate[W // 5: 4 * W // 5] = 1.0
+        outs = []
+        for c in (dm.freq_center, dm.freq_center + 55.0):
+            dm.set_center(c)
+            out = dm._window_fn(dm._put(win), dm._put(gate), dm.cfg,
+                                dm._put(np.float32(dm.freq_center)))
+            outs.append({k: v.cpu().numpy() for k, v in out.items()})
+        return outs, dm._window_fn
+    state = rng.bit_generator.state
+
+    def again():
+        rng.bit_generator.state = state      # the same window each run
+        return run()
+    (eager, e_step), (graphed, g_step) = _eager_then_graphed(again)
+    assert e_step.captures == 0 and g_step.captures == g_step.keys == 1
+    _same_outputs(graphed, eager)
+    assert not np.array_equal(graphed[0]["soft"], graphed[1]["soft"])
+
+
+@pytest.mark.parametrize("kind", ["msk", "oqpsk"])
+def test_graphed_single_vfo_demod_equals_eager_across_a_retune(cuda, kind):
+    """``MskDemodulator`` / ``OqpskDemodulator``, one graph replay per
+    block: the eager run's outputs byte for byte across a
+    ``Decoder._set_center`` retune (written into the static buffers: no
+    capture after it), one capture."""
+    from types import SimpleNamespace
+    from aero_tpu_torch.models.msk import MskDemodulator, msk_modulate
+    from aero_tpu_torch.models.oqpsk import OqpskDemodulator, oqpsk_modulate
+    from aero_tpu_torch.runtime.decoder import Decoder
+    rng = np.random.default_rng(8)
+    bits = rng.integers(0, 2, 16000)      # four blocks of either
+    if kind == "msk":
+        fs, fb, cls, retune = 24000.0, 1200.0, MskDemodulator, 1200.0
+        sig = msk_modulate(bits, fs, fb, freq=1000.0)
+    else:
+        fs, fb, cls, retune = 48000.0, 10500.0, OqpskDemodulator, 8100.0
+        sig = oqpsk_modulate(bits, fs, fb, freq=8000.0)
+    sig = sig + 0.03 * rng.standard_normal(len(sig)).astype(np.float32)
+
+    def run():
+        dm = cls(fs, fb, device=cuda)
+        L = dm.cfg.block_len
+        outs = dm.process(sig[:2 * L])
+        Decoder._set_center(SimpleNamespace(demod=dm), retune)
+        outs += dm.process(sig[2 * L:4 * L])
+        return outs, dm._step
+    (eager, e_step), (graphed, g_step) = _eager_then_graphed(run)
+    _same_outputs(graphed, eager)
+    assert e_step.captures == 0
+    assert len(graphed) == g_step.replays == 4
+    assert g_step.captures == g_step.keys == 1
+
+
+def test_graphed_pfb_channelizer_equals_eager(cuda):
+    """The filterbank backend, a graph replay per rate group and block:
+    the eager run's int16 payloads byte for byte, one capture per group."""
+    from aero_tpu_torch.channelizer import load_ini
+    from aero_tpu_torch.channelizer.pfb import PfbChannelizer
+    vfos = "".join(
+        f"{i + 1}\\frequency={1545002000 + i * 19000}\n"
+        f"{i + 1}\\data_rate={600 if i % 2 else 1200}\n"
+        f"{i + 1}\\topic=V{i}\n" for i in range(6))
+    cfg = load_ini("[General]\nsample_rate=1536000\n"
+                   "center_frequency=1545000000\n[vfos]\nsize=6\n" + vfos,
+                   is_text=True)
+    rng = np.random.default_rng(5)
+    blocks = [(0.1 * (rng.standard_normal(64 * 500)
+                      + 1j * rng.standard_normal(64 * 500))
+               ).astype(np.complex64) for _ in range(3)]
+
+    def run():
+        ch = PfbChannelizer(cfg, device=cuda)
+        return [ch.process(b) for b in blocks], ch
+    (eager, ech), (graphed, gch) = _eager_then_graphed(run)
+    assert graphed == eager
+    assert ech.captures == 0 and gch.captures == len(gch._steps) == 2

@@ -24,24 +24,55 @@ The card's side (capture, replay, graphed against eager byte for byte,
 a capture that syncs raising) is in tests/test_torch_cuda.py.
 """
 
+import os
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
 import jax
 import jax.numpy as jnp
 
+from aero_tpu.channelizer.pfb import PfbChannelizer as JaxPfb
+from aero_tpu.models import burst_common as jbc
+from aero_tpu.models import burst_msk as jbm
+from aero_tpu.models import burst_oqpsk as jbo
+from aero_tpu.models import msk as jmsk
+from aero_tpu.models import oqpsk as joq
+from aero_tpu.protocol import batch_framing as jbf
+from aero_tpu.runtime import decoder as jdecoder
 from aero_tpu.runtime.fused_station import FusedStation as JaxStation
 from aero_tpu_torch import convert
 from aero_tpu_torch.channelizer import load_ini
 from aero_tpu_torch.channelizer.channelizer import Channelizer
+from aero_tpu_torch.channelizer.pfb import PfbChannelizer
 from aero_tpu_torch.device import disable_graphs, graphs_enabled
-from aero_tpu_torch.models.msk import msk_modulate, msk_step
+from aero_tpu_torch.io.output import to_output_format
+from aero_tpu_torch.models import burst_common as tbc
+from aero_tpu_torch.models import burst_msk as tbm
+from aero_tpu_torch.models import burst_oqpsk as tbo
+from aero_tpu_torch.models.burst_msk import BurstMskDemodulator
+from aero_tpu_torch.models.burst_oqpsk import BurstOqpskDemodulator
+from aero_tpu_torch.models.msk import MskDemodulator, msk_modulate, msk_step
+from aero_tpu_torch.models.oqpsk import (OqpskDemodulator, OqpskState,
+                                         oqpsk_step)
+from aero_tpu_torch.ops import viterbi_kernel as vk
 from aero_tpu_torch.parallel.vfo_bank import MskVfoBank
+from aero_tpu_torch.protocol import batch_framing as tbf
+from aero_tpu_torch.protocol.batch_framing import BatchPChannelFramerBank
+from aero_tpu_torch.protocol.framing import FRAME_SPECS
+from aero_tpu_torch.protocol.interleaver import deinterleave_indices
+from aero_tpu_torch.runtime.decoder import Decoder, DecoderOptions
 from aero_tpu_torch.runtime.fused_station import FusedStation
-from aero_tpu_torch.utils.graphs import GraphedStep
+from aero_tpu_torch.utils import graphs
+from aero_tpu_torch.utils.graphs import GraphedStep, count_launch, stateless
 from aero_tpu_torch.utils.trees import tree_leaves, tree_map
+import test_torch_burst as tbt
 import test_torch_channelizer as tch
+import test_torch_msk as tmsk
+import test_torch_oqpsk as toq
 import test_torch_station_step as tss
+import test_torch_viterbi as tv
 from torch_station_bank import INI, make_wideband
 
 torch.set_num_threads(2)
@@ -344,3 +375,293 @@ def test_tree_channelizer_static_path_equals_functional(ini):
     _same_tree(ch._main_state, main)
     _same_tree(ch._sub_state, sub)
     assert ch.captures == 0
+
+
+# ---- stateless steps and the kernel's launch count -------------------------
+
+def test_stateless_step_keys_on_shapes_and_static_arguments():
+    """A step without state: tensors are inputs (copied into the static
+    buffers of their key), other arguments static (part of the key, as
+    ``jax.jit``'s static arguments), keywords too."""
+    calls = []
+
+    def fn(x, k, *, scale):
+        calls.append((tuple(x.shape), k, scale))
+        return {"y": x * k + scale}
+    st = stateless(fn, "affine", "cpu")
+    a, b = torch.arange(4.0), torch.arange(6.0)
+    assert torch.equal(st(a, 2, scale=1.0)["y"], a * 2 + 1)
+    assert torch.equal(st(b, 2, scale=1.0)["y"], b * 2 + 1)
+    assert torch.equal(st(a, 3, scale=0.5)["y"], a * 3 + 0.5)
+    assert len(st._eager_io) == 3 and st.captures == st.replays == 0
+    assert calls == [((4,), 2, 1.0), ((6,), 2, 1.0), ((4,), 3, 0.5)]
+    with pytest.raises(ValueError, match="name its device"):
+        GraphedStep(lambda s, x: (s, x), (), "no device")
+
+
+def test_kernel_launches_counted_through_replays():
+    """The Viterbi wrapper counts through ``count_launch``: at once
+    outside a capture; a warm-up's launches not at all; a capture's at
+    each replay of its graph (a replay runs no host code)."""
+    before = vk.LAUNCHES
+    count_launch(vk._count_launch)
+    assert vk.LAUNCHES == before + 1
+    with graphs._collecting_launches([]):               # a warm-up
+        count_launch(vk._count_launch)
+    with graphs._collecting_launches([]) as captured:   # a capture
+        count_launch(vk._count_launch)
+        count_launch(vk._count_launch)
+    assert vk.LAUNCHES == before + 1 and len(captured) == 2
+
+    class Stub:
+        replayed = 0
+
+        def replay(self):
+            self.replayed += 1
+    g = graphs._Graph(Stub(), [], None, captured)
+    g.replay()
+    g.replay()
+    assert g.graph.replayed == 2 and vk.LAUNCHES == before + 5
+
+
+# ---- the batched P decode --------------------------------------------------
+
+@pytest.fixture(scope="module")
+def p_frames():
+    """17 consecutive 1200 bps frames in noise, deinterleaved as the bank
+    prepares them: (payloads [17, 1152], prefixes [17, 62])."""
+    spec = FRAME_SPECS[1200]
+    _, soft = tv._frames(1200, 18, seed=12, noise=60.0)
+    tb, hb = spec.total_bits, spec.header_bits
+    didx = deinterleave_indices(spec.cols)
+    payloads, prefixes = [], []
+    prev = np.full(62, 128.0, np.float32)
+    for j in range(17):
+        pay = soft[j * tb + hb: j * tb + hb + spec.payload_soft_bits]
+        de = np.concatenate(
+            [pay[b * 64 * spec.cols:(b + 1) * 64 * spec.cols][didx]
+             for b in range(spec.blocks_per_frame)])
+        payloads.append(de)
+        prefixes.append(prev)
+        prev = de[-62:]
+    return np.stack(payloads), np.stack(prefixes)
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 17])
+def test_batch_decode_step_equals_plain_and_jax(p_frames, n):
+    """The bank's graphed decode, on a batch padded to a power of two with
+    128s as ``flush`` pads it: bit-exact with the plain function, with
+    JAX's ``batch_decode_p_frames`` (``use_pallas=False``) on the same
+    padded batch, and, on the first n rows, with JAX on the n rows."""
+    payloads, prefixes = (a[:n] for a in p_frames)
+    n_pad = 1 << (n - 1).bit_length()
+
+    def pad(a):
+        return np.concatenate([a, np.full((n_pad - n,) + a.shape[1:], 128.0,
+                                          np.float32)])
+    kw = dict(rate=1200, use_pallas=False, pre_deinterleaved=True)
+    bank = BatchPChannelFramerBank(1200, [], device="cpu")
+    got = bank._decode(bank._tensor(pad(payloads)),
+                       bank._tensor(pad(prefixes)), **kw)
+    plain = tbf.batch_decode_p_frames(torch.from_numpy(pad(payloads)),
+                                      torch.from_numpy(pad(prefixes)), **kw)
+    want_pad = jbf.batch_decode_p_frames(jnp.asarray(pad(payloads)),
+                                         jnp.asarray(pad(prefixes)), **kw)
+    want = jbf.batch_decode_p_frames(jnp.asarray(payloads),
+                                     jnp.asarray(prefixes), **kw)
+    for k in ("info_bits", "su_ok"):
+        assert got[k].shape[0] == n_pad
+        assert torch.equal(got[k], plain[k]), k
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want_pad[k]),
+                                      err_msg=k)
+        np.testing.assert_array_equal(got[k].numpy()[:n], np.asarray(want[k]),
+                                      err_msg=k)
+    assert got["su_ok"].numpy()[:n].any()
+    # a second call of the same key goes through the same static buffers
+    # (rows decode apart: reversed rows give the rows reversed)
+    again = bank._decode(bank._tensor(pad(payloads[::-1])),
+                         bank._tensor(pad(prefixes[::-1])), **kw)
+    for k in ("info_bits", "su_ok"):
+        assert torch.equal(again[k][:n], plain[k][:n].flip(0)), k
+    assert len(bank._decode._eager_io) == 1 and bank._decode.captures == 0
+
+
+# ---- burst detection and window demodulators -------------------------------
+
+@pytest.mark.parametrize("n_pad", [16384, 32768])
+def test_detection_statistics_steps_equal_plain_and_jax(n_pad):
+    """``_envelope`` and ``_autocorr_rho`` as the burst demodulator's
+    graphed steps, on ring buckets of 16384 and 32768 samples: equal to
+    the plain functions, and within 1e-5 of JAX's (relative to the
+    largest value: float32 FFTs and convolutions summed in another
+    order)."""
+    dm = BurstMskDemodulator(12000, 600, device="cpu")
+    x = tbt._burst_audio(12000.0, 600.0, False, seed=5)[:n_pad]
+    smooth, lag, det = dm._smooth_len(), 40, 320
+    env = dm._envelope(dm._put(x), smooth)
+    rho = dm._autocorr_rho(dm._put(x), lag, det)
+    assert torch.equal(env, tbm._envelope(torch.from_numpy(x), smooth))
+    assert torch.equal(rho, tbc._autocorr_rho(torch.from_numpy(x), lag, det))
+    je = np.asarray(jbm._envelope(x, smooth))
+    jr = np.asarray(jbc._autocorr_rho(x, lag, det))
+    np.testing.assert_allclose(env.numpy(), je, rtol=0,
+                               atol=1e-5 * np.abs(je).max())
+    np.testing.assert_allclose(rho.numpy(), jr, rtol=0, atol=1e-5 * jr.max())
+    assert [len(s._eager_io) for s in dm.steps] == [1, 1, 0]
+
+
+@pytest.mark.parametrize("kind", ["msk", "oqpsk"])
+def test_window_step_across_set_center(kind):
+    """The window function as the demodulator's graphed step, its center
+    a 0-d input: before and after ``set_center`` (one key, the same
+    static buffers) equal to the plain function at that center, and soft
+    bytes within one LSB of JAX's, equal on >= 99%."""
+    if kind == "msk":
+        fs, fb, jmod, tmod = 12000.0, 600.0, jbm, tbm
+        dm = BurstMskDemodulator(fs, fb, device="cpu")
+        centers = (dm.freq_center + 40.0, dm.freq_center + 163.0)
+    else:
+        fs, fb, jmod, tmod = 48000.0, 10500.0, jbo, tbo
+        dm = BurstOqpskDemodulator(fs, fb, device="cpu")
+        centers = (7300.0, 7450.0)
+    cfg = dm.cfg
+    window = getattr(tmod, f"burst_{kind}_window")
+    jwindow = getattr(jmod, f"burst_{kind}_window")
+    x = tbt._burst_audio(fs, fb, kind == "oqpsk", seed=4)[: cfg.window_len]
+    gate = tbt._gate(x, 8 * cfg.sps if kind == "msk" else 33)
+    for c in centers:
+        dm.set_center(c)
+        fc = np.float32(dm.freq_center)
+        got = dm._window_fn(dm._put(x), dm._put(gate), cfg, dm._put(fc))
+        plain = window(torch.from_numpy(x), torch.from_numpy(gate), cfg, fc)
+        for k in plain:
+            assert torch.equal(got[k], plain[k]), (c, k)
+        jout = jwindow(x, gate, jmod.make_config(fs, fb), fc)
+        tbt._check_window(jout, got)
+        js = np.asarray(jout["soft"])
+        assert (got["soft"].numpy() == js).mean() >= 0.99, c
+    assert len(dm._window_fn._eager_io) == 1
+
+
+# ---- the single-VFO demodulators ------------------------------------------
+
+def _retune(dec_cls, demod, freq):
+    """``Decoder._set_center`` on a decoder holding ``demod``."""
+    dec_cls._set_center(SimpleNamespace(demod=demod), freq)
+
+
+@pytest.mark.parametrize("kind", ["msk", "oqpsk"])
+def test_single_vfo_demod_across_a_retune(kind):
+    """``MskDemodulator`` / ``OqpskDemodulator`` through their graphed
+    step, teacher-forced block by block from JAX's demodulator (its state
+    written into the static buffers), with a ``Decoder._set_center``
+    retune before block 2 on both sides: each block equals the plain
+    ``msk_step`` / ``oqpsk_step`` on the same state exactly, and JAX's
+    outputs and state within the tolerances of tests/test_torch_msk.py
+    and tests/test_torch_oqpsk.py; the retune writes in place."""
+    if kind == "msk":
+        fs, fb = 24000.0, 1200.0
+        x = tmsk._modem_signal(fs, fb, cfo=60.0, snr=14.0)
+        jd, td = jmsk.MskDemodulator(fs, fb), MskDemodulator(fs, fb,
+                                                             device="cpu")
+        plain, check, state_cls = msk_step, tmsk._check_state, None
+    else:
+        fs, fb = 48000.0, 10500.0
+        x = toq._two_vfos(10500, seed=7)[0]
+        jd, td = joq.OqpskDemodulator(fs, fb), OqpskDemodulator(fs, fb,
+                                                                device="cpu")
+        plain, check, state_cls = oqpsk_step, toq._check_state, OqpskState
+    L = td.cfg.block_len
+    bufs = tree_leaves(td._step.state)
+    locked = 0
+    for b in range(4):
+        js = jax.tree.map(lambda a: np.asarray(a)[None], jd.state)
+        td.state = (convert.msk_state_from_numpy(js) if state_cls is None
+                    else convert.state_from_numpy(js, state_cls))
+        if b == 2:
+            _retune(jdecoder.Decoder, jd, 1500.0 if kind == "msk" else 8200.0)
+            _retune(Decoder, td, 1500.0 if kind == "msk" else 8200.0)
+        ts = td.state
+        blk = x[b * L:(b + 1) * L]
+        jout, = jd.process(blk)
+        tout, = td.process(blk)
+        new, want = plain(ts, torch.from_numpy(blk)[None], td.cfg)
+        for k in want:
+            np.testing.assert_array_equal(tout[k], want[k][0].numpy(),
+                                          err_msg=f"block {b} {k}")
+        _same_tree(td.state, new)
+        ctx = f"{kind} block {b}"
+        tmsk._check_soft(tout["soft_bits"], np.asarray(jout["soft_bits"]),
+                         ctx)
+        for k in ("slip", "signal"):
+            np.testing.assert_array_equal(tout[k], np.asarray(jout[k]),
+                                          err_msg=ctx)
+        check(td.state, jax.tree.map(lambda a: np.asarray(a)[None],
+                                     jd.state), ctx)
+        locked += int(tout["signal"])
+    assert locked > 0
+    assert all(a is b for a, b in zip(tree_leaves(td._step.state), bufs))
+    assert td._step.captures == 0 and len(td._step._eager_io) == 1
+
+
+# ---- the PFB channelizer ---------------------------------------------------
+
+def test_pfb_channelizer_static_path_equals_plain_and_jax():
+    """``PfbChannelizer`` with a graphed step per rate group: the payloads
+    of every block equal the plain group function's on a copy of the
+    state, and JAX's within the channelizer parity of
+    tests/test_torch_channelizer.py (int16 audio within one LSB); the
+    carries read back are JAX's; a state assigned mid-stream (a reset to
+    zeros on both sides) is written into the static buffers."""
+    vfos = "".join(
+        f"{i + 1}\\frequency={1545002000 + i * 19000}\n"
+        f"{i + 1}\\data_rate={600 if i % 2 else 1200}\n"
+        f"{i + 1}\\topic=V{i}\n" for i in range(6))
+    cfg = load_ini("[General]\nsample_rate=1536000\n"
+                   "center_frequency=1545000000\n[vfos]\nsize=6\n" + vfos,
+                   is_text=True)
+    jch, ch = JaxPfb(cfg), PfbChannelizer(cfg, device="cpu")
+    state = {r: s.snapshot() for r, s in ch._steps.items()}
+    bufs = {r: tree_leaves(s.state) for r, s in ch._steps.items()}
+    for b, T in enumerate((64 * 250, 64 * 251, 64 * 400, 64 * 250)):
+        iq = tch._wide(T, b)
+        if b == 2:      # a reset, as a checkpoint load writes it
+            ch._state = {r: torch.zeros_like(c) for r, c in ch._state.items()}
+            ch._phase = {r: torch.zeros_like(p) for r, p in ch._phase.items()}
+            for r in state:
+                state[r] = tree_map(torch.zeros_like, state[r])
+                jch._state[r] = jnp.zeros_like(jch._state[r])
+                jch._phase[r] = jnp.zeros_like(jch._phase[r])
+        got = ch.process(iq)
+        want = []
+        for r, idxs in ch.groups.items():
+            state[r], pcm = ch._steps[r].fn(state[r], torch.from_numpy(iq))
+            want += [(cfg.subs[i].topic, r, pcm[row].numpy().astype(
+                "<i2").tobytes()) for row, i in enumerate(idxs)]
+        assert got == want, f"block {b}"
+        tch._check_outputs(got, jch.process(iq))
+    for r, s in ch._steps.items():
+        _same_tree(s.state, state[r])
+        assert all(x is y for x, y in zip(tree_leaves(s.state), bufs[r]))
+        np.testing.assert_allclose(ch._phase[r].numpy(),
+                                   np.asarray(jch._phase[r]), atol=1e-6)
+    assert len(ch._steps) == 2 and ch.captures == 0
+
+
+# ---- the single-VFO decoder end to end ------------------------------------
+
+def test_decoder_on_the_1200_fixture_same_acars_as_jax(capsys):
+    """``Decoder`` (graphed demodulator; here its static-buffer path) on
+    tests/fixtures/synthetic_1200.wav prints the ACARS that JAX's
+    ``Decoder`` prints, in order."""
+    path = os.path.join(os.path.dirname(__file__), "fixtures",
+                        "synthetic_1200.wav")
+
+    def acars(dec):
+        dec.run_file(path)
+        return [to_output_format("jsondump", "X", False, it, now=0.0)
+                for it in dec.items]
+    want = acars(jdecoder.Decoder(jdecoder.DecoderOptions(bitrate=1200)))
+    got = acars(Decoder(DecoderOptions(bitrate=1200, device="cpu")))
+    capsys.readouterr()
+    assert len(want) >= 3 and got == want

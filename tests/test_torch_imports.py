@@ -217,6 +217,7 @@ def _tree(obj, subs=()):
 
 
 _FLUSH_SUBS = (
+    ("batch_decode_p_frames(", "self._decode("),
     ("jnp.asarray(soft), jnp.asarray(prefixes)",
      "self._tensor(soft), self._tensor(prefixes)"),
     ('np.asarray(dec["info_bits"])', 'dec["info_bits"].cpu().numpy()'),
@@ -238,11 +239,15 @@ _RT_SUBS = (
 
 # the burst wrapper's host logic: where arrays cross to the device
 _PROCESS_SUBS = (
-    ("np.asarray(_envelope(padded,", "_host(_envelope(self._put(padded),"),
+    ("    from aero_tpu_torch.models.burst_msk import _envelope\n", ""),
+    ("np.asarray(_envelope(padded,",
+     "_host(self._envelope(self._put(padded),"),
     ("np.asarray(_autocorr_rho(padded,",
-     "_host(_autocorr_rho(self._put(padded),"),
+     "_host(self._autocorr_rho(self._put(padded),"),
     ("self._window_fn(win, gwin.astype(np.float32),",
      "self._window_fn(self._put(win), self._put(gwin.astype(np.float32)),"),
+    ("np.float32(self.freq_center)",
+     "self._put(np.float32(self.freq_center))"),
     ('np.asarray(out["soft"])', '_host(out["soft"])'),
     ('np.asarray(out["active"])', '_host(out["active"])'),
 )

@@ -16,11 +16,16 @@ the smoke's wideband signal four times, in turns: eager (inside
 - device step: ``_dispatch`` (upload + one step: a CUDA-graph replay, or
   the step's ops one by one) up to ``torch.cuda.synchronize()``;
 - drain: ``_drain``, the packed buffer's copy back, host framing and the
-  batched Viterbi decode on the card.
+  batched Viterbi decode on the card, split by stage
+  (``chip_smoke.drain_split``): D2H, the batched decode (a graph replay,
+  or its ops eagerly), the burst watchers' detection statistics and
+  window demods, and the framers (the rest).
 
 It prints the pass's first block and the median of the blocks after the
-third for each stage.  Then, from the state the pass left, the step alone
-on one block (``chip_smoke.step_times``): the host's enqueue time and the
+third for each stage, and the drain's split (median and mean per
+drain, the windows' ms each) with the drain steps' captures.  Then, from
+the state the pass left, the step alone on one block
+(``chip_smoke.step_times``): the host's enqueue time and the
 CUDA-event device time per step over 10 steps, and under
 ``torch.profiler`` over 3 steps the device operations per step (the
 kernels, copies and sets the profiler reports on the device; a replay's
@@ -56,22 +61,28 @@ def stages(st, wide, n_blocks: int, card: str, mode: str) -> np.ndarray:
     median; returns the last quantized block."""
     L = st.block_len
     ms = {"quantize": [], "device step": [], "drain": []}
-    for b in range(n_blocks):
-        t0 = time.perf_counter()
-        arr = st.quantize(wide[b * L:(b + 1) * L])
-        t1 = time.perf_counter()
-        st._pending.append((arr, np.float32(1.0)))
-        st._dispatch()
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        st._drain(st._inflight.popleft())
-        t3 = time.perf_counter()
-        for name, dt in zip(ms, (t1 - t0, t2 - t1, t3 - t2)):
-            ms[name].append(1e3 * dt)
+    with chip_smoke.drain_split(st, {}) as split:
+        for b in range(n_blocks):
+            t0 = time.perf_counter()
+            arr = st.quantize(wide[b * L:(b + 1) * L])
+            t1 = time.perf_counter()
+            st._pending.append((arr, np.float32(1.0)))
+            st._dispatch()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            st._drain(st._inflight.popleft())
+            t3 = time.perf_counter()
+            for name, dt in zip(ms, (t1 - t0, t2 - t1, t3 - t2)):
+                ms[name].append(1e3 * dt)
     for name, v in ms.items():
         print(f"{mode}: {name}: first block {v[0]:.3f} ms, median of "
               f"blocks 4-{n_blocks} {statistics.median(v[3:]):.3f} ms "
               f"({card})", flush=True)
+    warm = {k: v[3:] for k, v in split.items()}
+    print(f"{mode}: drain split over blocks 4-{n_blocks}, "
+          f"{chip_smoke.split_text(warm)}; drain step captures: "
+          f"{chip_smoke._captures_text(chip_smoke.drain_steps(st))} "
+          f"({card})", flush=True)
     return arr
 
 
