@@ -28,6 +28,7 @@ from aero_tpu_torch.channelizer.channelizer import Channelizer
 from aero_tpu_torch.channelizer.pfb import PfbChannelizer, pfb_extract_vfo
 from aero_tpu_torch.ops import fir as tfir
 from aero_tpu_torch.ops.spectral import single_bin_dft, tone_phase_and_freq
+from tests.torch_natives import ingest  # noqa: F401
 
 torch.set_num_threads(2)
 
@@ -176,11 +177,9 @@ def _check_outputs(got, want):
             assert worst <= 1 and frac <= 0.01, (topic, frac, worst)
 
 
-@pytest.mark.parametrize("ini,blocks", [
-    (INI_TREE, (38400, 76800, 25600)),
-    (INI_LATE, (43200, 28800, 57600)),
-], ids=["tree_1536k", "late_288k"])
-def test_channelizer_matches_jax(ini, blocks):
+def channelizer_parity(ini, blocks):
+    """Run both channelizers on the same blocks and hold every output and
+    the DC-tracker carry to the tolerances above."""
     cfg = load_ini(ini, is_text=True)
     jch = JaxChannelizer(cfg)
     tch = Channelizer(cfg, device="cpu")
@@ -193,6 +192,18 @@ def test_channelizer_matches_jax(ini, blocks):
                                    rtol=1e-5, atol=1e-9)
     if cfg.correct_dc_bias:
         assert np.abs(tch._dc_state).max() > 0
+
+
+# (station file, block lengths) of the channelizer parity streams
+STREAMS = {"tree_1536k": (INI_TREE, (38400, 76800, 25600)),
+           "late_288k": (INI_LATE, (43200, 28800, 57600))}
+
+
+@pytest.mark.parametrize("stream", list(STREAMS))
+def test_channelizer_matches_jax(ingest, stream):
+    """On the native ingest path and on the numpy one, both packages on
+    the same one (tests/torch_natives.py)."""
+    channelizer_parity(*STREAMS[stream])
 
 
 def test_pfb_channelizer_matches_jax():

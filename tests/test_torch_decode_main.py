@@ -32,6 +32,7 @@ from aero_tpu_torch.runtime import decode_main as torch_decode
 from aero_tpu_torch.runtime import publish_main as torch_publish
 from aero_tpu_torch.runtime import station_main as torch_station
 from tests.test_torch_channelizer import _check_outputs
+from tests.torch_natives import ingest  # noqa: F401
 
 torch.set_num_threads(2)
 
@@ -149,7 +150,10 @@ def _recording_publisher(monkeypatch, module, sink):
 
 
 @pytest.mark.parametrize("legacy", [False, True])
-def test_publish_main_same_frames_as_jax(tmp_path, monkeypatch, legacy):
+def test_publish_main_same_frames_as_jax(tmp_path, monkeypatch, ingest,
+                                         legacy):
+    """On the native ingest path and on the numpy one, both packages on
+    the same one (tests/torch_natives.py)."""
     from aero_tpu.io import zmq_transport as jz
     from aero_tpu_torch.io import zmq_transport as tz
     from tests.test_torch_channelizer import INI_TREE, _wide

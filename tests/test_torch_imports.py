@@ -32,6 +32,8 @@ import textwrap
 import numpy as np
 import pytest
 
+from tests.torch_natives import reference_natives  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "aero_tpu_torch")
 
@@ -164,10 +166,13 @@ def test_native_sources_are_byte_copies(rel):
 
 
 @pytest.fixture
-def natives():
+def natives(reference_natives):
+    """Both packages' native modules, each with its libraries loaded; the
+    reference's come through ``reference_natives`` where this worker lost
+    the reference's build race (tests/torch_natives.py)."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the native libraries")
-    from aero_tpu import native as jn
+    jn = reference_natives
     from aero_tpu_torch import native as tn
     assert tn.have_native() and tn.have_native_ingest()
     assert jn.have_native() and jn.have_native_ingest()
