@@ -30,8 +30,8 @@ layout and names so each module's counterpart is found at the same path:
                                  the streaming Viterbi), copies of
                                  ``aero_tpu/native``'s sources, built
                                  with g++ into ``build/aero_tpu_torch/``.
-- ``aero_tpu_torch.utils``       the CLIs' signal notifier, logging and
-                                 profiling helpers.
+- ``aero_tpu_torch.utils``       the CLIs' signal notifier, logging, the
+                                 CUDA-graph steps and the tracer.
 - ``aero_tpu_torch.convert``     carries JAX state trees into the port and
                                  back (the parity tests' teacher forcing,
                                  the checkpoints' leaf order).

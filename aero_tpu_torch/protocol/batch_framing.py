@@ -32,10 +32,11 @@ import torch
 from aero_tpu_torch.protocol.crc import crc16_bits
 from aero_tpu_torch.protocol.scrambler import SCRAMBLE_KEYSTREAM
 from aero_tpu_torch.protocol.interleaver import deinterleave_indices
-from aero_tpu_torch.protocol.framing import FRAME_SPECS
+from aero_tpu_torch.protocol.framing import FRAME_SPECS, PChannelFramer
 from aero_tpu_torch.ops.viterbi_kernel import (soft_to_bytes,
                                                viterbi_decode_soft_cuda)
 from aero_tpu_torch.utils.graphs import stateless
+from aero_tpu_torch.utils.profiling import TRACER
 
 HISTORY = 62
 LOOKAHEAD = 48
@@ -135,6 +136,59 @@ def batch_decode_p_frames(soft_payloads, prefixes, *, rate: int,
     return {"info_bits": info, "su_ok": ok | zeros}
 
 
+class TracedPChannelFramer(PChannelFramer):
+    """``PChannelFramer`` with spans and counters (``utils/profiling.py``),
+    built in its place while the tracer is on.  Each feed is one span: a
+    framer that starts it unlocked searches (``framers.search``: buffer,
+    hard decisions, UW correlation, a lock's arm calibration), a locked
+    one prepares frames (``framers.prepare``: buffer, frame cut, arm
+    flip, deinterleave, the deferral's bookkeeping).  A framer that
+    decodes its own frames (not deferred) spans each frame's bookkeeping
+    (``framers.finish``); in a bank the flush spans it.  Counters:
+    ``uw.searches``, ``uw.bits`` (bits correlated), ``uw.locks``,
+    ``uw.losses``, ``frames.cut``."""
+
+    def feed(self, soft_bytes, slip=0):
+        with TRACER.span("framers.prepare" if self.locked
+                         else "framers.search"):
+            return super().feed(soft_bytes, slip)
+
+    def _correlate_uw(self, hard):
+        TRACER.count("uw.searches")
+        TRACER.count("uw.bits", len(hard))
+        return super()._correlate_uw(hard)
+
+    def _calibrate_arm_flip(self, hard, end):
+        TRACER.count("uw.locks")        # once per lock acquired
+        super()._calibrate_arm_flip(hard, end)
+
+    def _prepare_frame(self, frame):
+        TRACER.count("frames.cut")
+        return super()._prepare_frame(frame)
+
+    def _finish_frame(self, pre, infofield, su_ok_in):
+        if self.defer_decode:
+            return super()._finish_frame(pre, infofield, su_ok_in)
+        with TRACER.span("framers.finish"):
+            return super()._finish_frame(pre, infofield, su_ok_in)
+
+    def _maybe_relock(self, uw_errors):
+        locked = self.locked
+        super()._maybe_relock(uw_errors)
+        if locked and not self.locked:
+            TRACER.count("uw.losses")
+
+
+def _decoded(n: int, n_pad: int) -> None:
+    """Close the flush's ``framers.decode`` span, count its rows, and
+    open its ``framers.finish`` span (the bookkeeping of the batch)."""
+    TRACER.close()
+    TRACER.count("decode.calls")
+    TRACER.count("decode.rows", n)
+    TRACER.count("decode.rows_launched", n_pad)
+    TRACER.open("framers.finish")
+
+
 class BatchPChannelFramerBank:
     """Many same-rate P-channel framers with ONE batched decode per drain.
 
@@ -145,12 +199,16 @@ class BatchPChannelFramerBank:
     bookkeeping in order — the JAX bank's semantics, with the decode call
     swapped (see the JAX docstring for the equivalence with sequential
     framing).  The call is ``_decode``, a graphed step: a CUDA-graph
-    replay per (rate, padded N) on a card.
+    replay per (rate, padded N) on a card.  Built while the tracer is on,
+    its framers are ``TracedPChannelFramer``, and each round of its flush
+    is a ``framers.decode`` span (stack, pad, the decode, its outputs on
+    the host) and a ``framers.finish`` span (infofields, each frame's
+    bookkeeping, the rewinds, counted in ``frames.rewound``).
     """
 
     def __init__(self, rate: int, topics, use_pallas: bool = False,
                  device="cpu"):
-        from aero_tpu_torch.protocol.framing import PChannelFramer
+        framer = TracedPChannelFramer if TRACER.on else PChannelFramer
         self.rate = rate
         self.use_pallas = use_pallas
         self.device = torch.device(device)
@@ -159,7 +217,7 @@ class BatchPChannelFramerBank:
                                  self.device)
         self.framers = {}
         for t in topics:
-            f = PChannelFramer(rate)
+            f = framer(rate)
             f.defer_decode = True
             self.framers[t] = f
 
@@ -195,6 +253,8 @@ class BatchPChannelFramerBank:
                     for pre in f._pending]
             if not pend:
                 return out
+            if TRACER.on:
+                TRACER.open("framers.decode")
             soft = np.stack([pre["soft"] for _, pre in pend])
             prefixes = np.stack([pre["prefix"] for _, pre in pend])
             # pad the batch to the next power of two, as the JAX bank
@@ -214,6 +274,8 @@ class BatchPChannelFramerBank:
                 use_pallas=self.use_pallas, pre_deinterleaved=True)
             info_bits = dec["info_bits"].cpu().numpy()
             su_ok = dec["su_ok"].cpu().numpy()
+            if TRACER.on:
+                _decoded(n, n_pad)
 
             idx = 0
             rewound = False
@@ -241,8 +303,12 @@ class BatchPChannelFramerBank:
                             [pre["raw"][-kk:]] + later + [f.buf])
                         evs = f.feed(np.zeros(0, np.float32))
                         assert not evs
+                        if TRACER.on:
+                            TRACER.count("frames.rewound", len(later))
                         if later:
                             rewound = True
                             break
+            if TRACER.on:
+                TRACER.close()
             if not rewound:
                 return out

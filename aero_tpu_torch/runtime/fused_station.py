@@ -66,11 +66,13 @@ from aero_tpu_torch.ops.nco import cis, fused_mul_add
 from aero_tpu_torch.ops.viterbi_kernel import stream_decoder
 from aero_tpu_torch.parallel.mesh import (Mesh, gather, gather_tree,
                                           replicate, shard_over_vfo)
+from aero_tpu_torch.protocol.batch_framing import TracedPChannelFramer
 from aero_tpu_torch.protocol.c_framing import CChannelFramer
 from aero_tpu_torch.protocol.framing import PChannelFramer, apply_slip
 from aero_tpu_torch.protocol.rt_framing import RTChannelFramer
 from aero_tpu_torch.protocol.su_dispatch import PChannelSUDispatcher
 from aero_tpu_torch.utils.graphs import GraphedStep
+from aero_tpu_torch.utils.profiling import TRACER, traced
 from aero_tpu_torch.utils.trees import tree_map
 from aero_tpu_torch.runtime.station import (StationStats,
                                             account_framer_events,
@@ -87,6 +89,14 @@ AUDIO_I16_SCALE = 4096.0
 # per-VFO telemetry floats packed after the soft bits:
 # signal / mse / ebno / freq / slip
 TEL_SLOTS = 5
+
+
+def _traced_account(stats, data_rate, evs, dispatcher=None) -> None:
+    """``account_framer_events`` as a ``framers.dispatch`` span, for a
+    framer that returned events."""
+    if evs:
+        with TRACER.span("framers.dispatch"):
+            account_framer_events(stats, data_rate, evs, dispatcher)
 
 
 class FusedStation:
@@ -179,8 +189,10 @@ class FusedStation:
                 demod = (BurstOqpskDemodulator if rate > 1200
                          else BurstMskDemodulator)
                 for t in self.topics[key]:
-                    self.burst_demods[t] = demod(float(out_rate), float(rate),
-                                                 device=self.device)
+                    dm = self.burst_demods[t] = demod(
+                        float(out_rate), float(rate), device=self.device)
+                    if TRACER.on:
+                        dm.process = traced(dm.process, "drain.burst")
                     self.rt_framers[t] = RTChannelFramer(
                         oqpsk=rate > 1200, on_acars=self._mk_sink(t),
                         db=self._db, decoder=stream_decoder(self.device))
@@ -220,8 +232,9 @@ class FusedStation:
                     self.dispatchers[t] = PChannelSUDispatcher(
                         on_acars=self._mk_sink(t), db=self._db)
                 continue
+            framer = TracedPChannelFramer if TRACER.on else PChannelFramer
             for t in group_topics:
-                self.framers[t] = PChannelFramer(rate)
+                self.framers[t] = framer(rate)
                 self.dispatchers[t] = PChannelSUDispatcher(
                     on_acars=self._mk_sink(t), db=self._db)
 
@@ -253,6 +266,15 @@ class FusedStation:
         self.blocks_per_step = max(1, int(blocks_per_step))
         self._inflight = deque()
         self._pending = []
+        # blocks fed, stepped and drained: the block ids of the spans
+        self._fed = self._stepped = self._drained = 0
+        self._account_framer_events = account_framer_events
+        if TRACER.on:
+            self.process, self.quantize = (self._traced_process,
+                                           self._traced_quantize)
+            self._run_block, self._drain = (self._traced_run_block,
+                                            self._traced_drain)
+            self._account_framer_events = _traced_account
 
     def _mk_sink(self, topic):
         def sink(item):
@@ -594,6 +616,8 @@ class FusedStation:
         """Upload the pending blocks in one copy, run one device step per
         block (a graph replay per shard on a card), and queue the packed
         buffers [m, n], a fresh tensor that no later step writes."""
+        if TRACER.on:
+            TRACER.open("station.upload", self._stepped)
         iqs = torch.from_numpy(np.stack([a for a, _ in self._pending])).to(
             self.device)
         scales = torch.from_numpy(np.asarray(
@@ -601,6 +625,8 @@ class FusedStation:
         self._pending = []
         packed = torch.empty((iqs.shape[0], self._packed_len),
                              dtype=torch.uint8, device=self.device)
+        if TRACER.on:
+            TRACER.close()
         for i in range(iqs.shape[0]):
             self._run_block(iqs[i], scales[i], packed[i])
         self._inflight.append(packed)
@@ -681,15 +707,44 @@ class FusedStation:
                         {topic: apply_slip(sb[r], int(slips[r]))
                          for r, topic in enumerate(self.topics[key])})
                     for topic, evs in evs_by_topic.items():
-                        account_framer_events(self.stats, rate, evs,
-                                              self.dispatchers.get(topic))
+                        self._account_framer_events(
+                            self.stats, rate, evs,
+                            self.dispatchers.get(topic))
                     continue
                 for r, topic in enumerate(self.topics[key]):
-                    account_framer_events(
+                    self._account_framer_events(
                         self.stats, rate,
                         self.framers[topic].feed(sb[r].astype(np.float32),
                                                  slip=int(slips[r])),
                         self.dispatchers.get(topic))
+
+    # ---- spans, for a station built while the tracer is on
+    # (utils/profiling.py): the block fed or drained, and the calls ----
+
+    def _traced_process(self, iq_or_quantized):
+        with TRACER.span("station.process", self._fed):
+            FusedStation.process(self, iq_or_quantized)
+        self._fed += 1
+        TRACER.count("blocks.in")
+
+    def _traced_quantize(self, iq):
+        with TRACER.span("station.quantize", self._fed):
+            return FusedStation.quantize(self, iq)
+
+    def _traced_run_block(self, iq2, scale, out):
+        with TRACER.span("station.step", self._stepped):
+            FusedStation._run_block(self, iq2, scale, out)
+        self._stepped += 1
+
+    def _traced_drain(self, packed):
+        """The drain of the packed rows [m, n] of blocks ``_drained`` on,
+        its D2H a span of its own."""
+        with TRACER.span("station.drain", self._drained):
+            with TRACER.span("drain.d2h"):
+                host = packed.cpu()
+            FusedStation._drain(self, host)
+        self._drained += len(packed)
+        TRACER.count("blocks.drained", len(packed))
 
     # ---- checkpoint/resume (runtime/checkpoint.py) ----
 

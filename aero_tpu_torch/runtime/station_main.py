@@ -10,7 +10,10 @@ channels, OQPSK 8400 C channels (voice frames to ``--voice-out``) and
 burst R/T watchers at 600/1200/10500; each ACARS item goes through the
 ACARS application decoders (ADS-C, CPDLC) before it is printed.
 ``--checkpoint`` resumes from and saves to a checkpoint in the JAX
-station's format.  The JAX-only ``--platform`` / ``--compile-cache`` are
+station's format.  ``--trace`` switches the port's tracer on
+(``utils/profiling.py``): the stats lines and the SIGHUP dump then carry
+each stage's self ms per drained block and each counter's change since
+the last line.  The JAX-only ``--platform`` / ``--compile-cache`` are
 absent.
 
 Usage:
@@ -30,6 +33,8 @@ import sys
 import time
 
 import numpy as np
+
+from aero_tpu_torch.utils.profiling import TRACER
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -81,7 +86,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-hunt", action="store_true",
                    help="disable per-VFO signal hunting (the reference's "
                         "SignalHunter scan; ref decode/decode.cpp:161-226)")
+    p.add_argument("--trace", action="store_true",
+                   help="trace the station: the stats lines and the "
+                        "SIGHUP dump carry each stage's self ms per "
+                        "drained block and each counter's change since "
+                        "the last line")
     return p
+
+
+def trace_reading() -> dict:
+    """What the tracer recorded since the last reading: blocks drained,
+    each stage's self ms per drained block, the counters' changes."""
+    return TRACER.take().per_block_ms()
 
 
 def main(argv=None, on_station=None) -> int:
@@ -100,6 +116,9 @@ def main(argv=None, on_station=None) -> int:
 
     device = resolve_device(args.device)
     set_fp32_precision()
+    if args.trace:
+        TRACER.take()
+        TRACER.on = True
     cfg = load_ini(args.settings)
     targets = [ForwardTarget(parse_forwarder(s))
                for v in args.forwarder for s in v.split(",") if s]
@@ -180,6 +199,8 @@ def main(argv=None, on_station=None) -> int:
         # fused backend: per-VFO signal/mse/ebno/freq + burst counters
         if hasattr(st, "vfo_telemetry"):
             dump["vfos"] = st.vfo_telemetry()
+        if args.trace:
+            dump["trace"] = trace_reading()
         print(json.dumps({"stats_on_sighup": dump}),
               file=sys.stderr, flush=True)
 
@@ -205,16 +226,19 @@ def main(argv=None, on_station=None) -> int:
             if time.time() - last_stats >= args.stats_every:
                 last_stats = time.time()
                 s = st.stats
-                print(json.dumps({
-                    "stats": {
-                        "wideband_samples": s.wideband_samples,
-                        "realtime_factor": round(
-                            s.realtime_factor / cfg.sample_rate, 2),
-                        "frames": s.frames, "su_ok": s.su_ok,
-                        "su_bad": s.su_bad, "acars": s.acars,
-                        "burst_windows": s.burst_windows,
-                        "burst_packets": s.burst_packets,
-                    }}), file=sys.stderr, flush=True)
+                line = {
+                    "wideband_samples": s.wideband_samples,
+                    "realtime_factor": round(
+                        s.realtime_factor / cfg.sample_rate, 2),
+                    "frames": s.frames, "su_ok": s.su_ok,
+                    "su_bad": s.su_bad, "acars": s.acars,
+                    "burst_windows": s.burst_windows,
+                    "burst_packets": s.burst_packets,
+                }
+                if args.trace:
+                    line["trace"] = trace_reading()
+                print(json.dumps({"stats": line}), file=sys.stderr,
+                      flush=True)
         if hasattr(st, "flush"):
             st.flush()       # drain the pipelined in-flight blocks
 
@@ -255,6 +279,8 @@ def main(argv=None, on_station=None) -> int:
         final["checkpoint"] = args.checkpoint
     print(json.dumps({"final_stats": final}), file=sys.stderr)
     notifier.uninstall()
+    if args.trace:
+        TRACER.on = False
     return 0
 
 

@@ -55,6 +55,7 @@ import logging
 import torch
 
 from aero_tpu_torch.device import graphs_enabled, set_fp32_precision
+from aero_tpu_torch.utils.profiling import TRACER
 from aero_tpu_torch.utils.trees import tree_leaves, tree_map
 
 log = logging.getLogger(__name__)
@@ -142,6 +143,14 @@ def _key(args, static) -> tuple:
             tuple(sorted(static.items())))
 
 
+def _key_text(args, static) -> str:
+    """A key as text: each input's shape and dtype, each static value."""
+    parts = ["x".join(map(str, a.shape)) + " " + str(a.dtype).split(".")[-1]
+             if isinstance(a, torch.Tensor) else repr(a) for a in args]
+    parts += [f"{k}={v!r}" for k, v in sorted(static.items())]
+    return "(" + ", ".join(parts) + ")"
+
+
 def _bind(args, inputs) -> list:
     """``args`` with its tensors replaced, in order, by ``inputs``."""
     it = iter(inputs)
@@ -208,7 +217,8 @@ class GraphedStep:
             return self._eager(key, args, inputs, static, out)
         g = self._graphs.get(key)
         if g is None:
-            g = self._graphs[key] = self._capture(args, inputs, static)
+            capture = self._traced_capture if TRACER.on else self._capture
+            g = self._graphs[key] = capture(args, inputs, static)
         for s, x in zip(g.inputs, inputs):
             s.copy_(x)
         g.replay()
@@ -232,6 +242,15 @@ class GraphedStep:
             io[1] = tree_map(torch.empty_like, outputs)
         tree_map(lambda s, o: s.copy_(o), io[1], outputs)
         return _copy_out(io[1], out)
+
+    def _traced_capture(self, args, inputs, static) -> _Graph:
+        """``_capture`` as a ``graph.capture`` span tagged with the step's
+        name and key, counted in ``graph.captures``."""
+        with TRACER.span("graph.capture",
+                         tag=f"{self.name} {_key_text(args, static)}"):
+            g = self._capture(args, inputs, static)
+        TRACER.count("graph.captures")
+        return g
 
     def _capture(self, args, inputs, static) -> _Graph:
         dev = self.device

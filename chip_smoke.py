@@ -138,8 +138,9 @@ and banks' device steps run as CUDA-graph replays, the port's default):
     retunes capture nothing new) and one per key of each drain step.
     Then each path's times in both modes in turns (eager, graphed,
     graphed, eager): the serial block's stages with the drain split by
-    stage (D2H, batched decode, burst statistics, window demods,
-    framers), the step alone (host enqueue, CUDA events, device
+    stage (the tracer's self times: D2H, batched decode, burst watchers,
+    UW search, frame preparation, frame bookkeeping, SU dispatch, the
+    drain's own), the step alone (host enqueue, CUDA events, device
     operations, graph launches, device time, idle share) and the
     captures, the filterbank station's channelizer and the decoder's
     block.
@@ -188,6 +189,7 @@ from aero_tpu_torch.protocol.viterbi import viterbi_decode_soft
 from aero_tpu_torch.runtime import station_main
 from aero_tpu_torch.runtime.fused_station import FusedStation
 from aero_tpu_torch.runtime.station import Station
+from aero_tpu_torch.utils.profiling import PREFIX, TRACER
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path[:0] = [os.path.join(ROOT, "tests"), os.path.join(ROOT, "tools")]
@@ -639,86 +641,32 @@ def phase_cband(card: str, workdir: str) -> dict:
             "iq": iq, "layout": layout, "content": content}
 
 
-DRAIN_STAGES = ("D2H", "batched decode", "burst statistics",
-                "window demods", "framers")
+# a fused station's drain stages as the tracer names them
+# (aero_tpu_torch/utils/profiling.py), the drain's own self time last
+DRAIN_STAGES = ("drain.d2h", "framers.decode", "drain.burst",
+                "framers.search", "framers.prepare", "framers.finish",
+                "framers.dispatch", "station.drain")
 
 
-@contextlib.contextmanager
-def drain_split(st, split: dict):
-    """Inside, each drain of the fused station ``st`` is timed by stage
-    on the host clock, one entry per drain into ``split`` (stage -> ms):
-    the packed buffer's copy back (D2H); the framer banks' batched decodes,
-    the burst watchers' detection statistics and their window demods
-    (each graphed step, or its eager ops, from the upload of its inputs to
-    a synchronize); and the framers, the rest of the drain (UW search,
-    bookkeeping, R/T framing, SU dispatch).  ``split["windows"]`` counts
-    the windows demodulated."""
-    spent = dict.fromkeys(DRAIN_STAGES[1:4], 0.0)
-    calls = {"windows": 0}
-
-    class Timed:
-        """The step, timed; its attributes (captures, keys, name) read
-        through."""
-
-        def __init__(self, step, stage):
-            self.step, self.stage = step, stage
-
-        def __getattr__(self, name):
-            return getattr(self.step, name)
-
-        def __call__(self, *args, **kw):
-            t0 = time.perf_counter()
-            out = self.step(*args, **kw)
-            torch.cuda.synchronize()
-            spent[self.stage] += time.perf_counter() - t0
-            calls["windows"] += self.stage == "window demods"
-            return out
-    saved = [(bank, "_decode") for bank in st._batch_banks.values()]
-    saved += [(dm, a) for dm in st.burst_demods.values()
-              for a in ("_envelope", "_autocorr_rho", "_window_fn")]
-    saved = [(obj, a, getattr(obj, a)) for obj, a in saved]
-    for obj, a, step in saved:
-        setattr(obj, a, Timed(step, {"_decode": "batched decode",
-                                     "_window_fn": "window demods"}.get(
-                                         a, "burst statistics")))
-    had = "_drain" in vars(st)
-    drain = st._drain
-
-    def timed_drain(packed):
-        for k in spent:
-            spent[k] = 0.0
-        calls["windows"] = 0
-        t0 = time.perf_counter()
-        host = packed.cpu()
-        t1 = time.perf_counter()
-        drain(host)
-        t2 = time.perf_counter()
-        rest = (t2 - t1) - sum(spent.values())
-        for k, v in zip(DRAIN_STAGES, (t1 - t0, *spent.values(), rest)):
-            split.setdefault(k, []).append(1e3 * v)
-        split.setdefault("windows", []).append(calls["windows"])
-    st._drain = timed_drain
-    try:
-        yield split
-    finally:
-        if had:
-            st._drain = drain
-        else:
-            del st._drain
-        for obj, a, step in saved:
-            setattr(obj, a, step)
+def stage_split(rec) -> dict:
+    """Each drain stage's self ms in each drain of the tracer's records
+    ``rec`` (stage -> [ms per drain])."""
+    drains = sorted(rec.by_block("station.drain"))
+    if not drains:
+        raise AssertionError("no drain traced: build the station with the "
+                             "tracer on")
+    by = {k: rec.by_block(k) for k in DRAIN_STAGES}
+    return {k: [v.get(b, 0) / 1e6 for b in drains] for k, v in by.items()}
 
 
-def split_text(split: dict) -> str:
-    """A drain split as text: each stage's median and mean ms per drain,
-    and the windows' ms each."""
-    parts = [f"{k} {float(np.median(split[k])):.3f} / "
-             f"{float(np.mean(split[k])):.3f}" for k in DRAIN_STAGES]
-    n = sum(split["windows"])
-    if n:
-        parts.append(f"{n} windows, {sum(split['window demods']) / n:.3f} "
-                     "ms each")
-    return "ms median / mean per drain: " + ", ".join(parts)
+def split_text(split: dict, windows: int = 0) -> str:
+    """A drain split as text: each stage's median and mean self ms per
+    drain, and the burst windows demodulated."""
+    parts = [f"{k} {float(np.median(v)):.3f} / {float(np.mean(v)):.3f}"
+             for k, v in split.items()]
+    if windows:
+        parts.append(f"{windows} burst windows")
+    return "self ms median / mean per drain: " + ", ".join(parts)
 
 
 def stage_times(st, wide, card: str, label: str) -> dict:
@@ -727,7 +675,8 @@ def stage_times(st, wide, card: str, label: str) -> dict:
     Serially per block, on the host clock: quantize, device step (upload
     and one step, up to a synchronize) and drain (the packed buffer's copy
     back, host framing, burst windows and decodes), the drain split by
-    stage (``drain_split``).  Then the step alone on the last block
+    stage from the tracer's spans (``stage_split``; the station was built
+    with the tracer on).  Then the step alone on the last block
     (``step_times``).  The station's sinks are silenced first (the run
     that fed them is over).  Returns the medians, the split and the
     step's figures."""
@@ -736,25 +685,28 @@ def stage_times(st, wide, card: str, label: str) -> dict:
     st.on_voice = lambda *a: None
     L = st.block_len
     times = {"quantize": [], "device step": [], "drain": []}
-    with drain_split(st, {}) as split:
-        for b in range(len(wide) // L):
-            t0 = time.perf_counter()
-            q = st.quantize(wide[b * L:(b + 1) * L])
-            t1 = time.perf_counter()
-            st._pending.append(q if isinstance(q, tuple)
-                               else (q, np.float32(1)))
-            st._dispatch()
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            st._drain(st._inflight.popleft())
-            t3 = time.perf_counter()
-            for name, dt in zip(times, (t1 - t0, t2 - t1, t3 - t2)):
-                times[name].append(1e3 * dt)
+    TRACER.take()
+    windows = st.stats.burst_windows
+    for b in range(len(wide) // L):
+        t0 = time.perf_counter()
+        q = st.quantize(wide[b * L:(b + 1) * L])
+        t1 = time.perf_counter()
+        st._pending.append(q if isinstance(q, tuple)
+                           else (q, np.float32(1)))
+        st._dispatch()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        st._drain(st._inflight.popleft())
+        t3 = time.perf_counter()
+        for name, dt in zip(times, (t1 - t0, t2 - t1, t3 - t2)):
+            times[name].append(1e3 * dt)
+    split = stage_split(TRACER.take())
     mode = "graphed" if graphs_enabled() else "eager"
     log(f"{label} block of {L} samples ({mode}), median of {len(wide) // L} "
         "warm blocks, serial: " + ", ".join(
             f"{k} {float(np.median(v)):.3f} ms" for k, v in times.items())
-        + f"; drain split, {split_text(split)} ({card})")
+        + f"; drain split, "
+        f"{split_text(split, st.stats.burst_windows - windows)} ({card})")
     out = {k: float(np.median(v)) for k, v in times.items()}
     out["split"] = split
     out.update(step_times(st, q, card, label))
@@ -796,8 +748,10 @@ def step_times(st, q, card: str, label: str) -> dict:
             st._run_block(iq, scale, out)
         torch.cuda.synchronize()
     st._state = saved
+    # the tracer's ranges' device-side annotations are host spans, not work
     dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.name.startswith(PREFIX)]
     launches = sum(e.name == "cudaGraphLaunch" for e in prof.events())
     busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / n
     idle = 100 * (1 - busy_ms / step_ms)
@@ -807,7 +761,9 @@ def step_times(st, q, card: str, label: str) -> dict:
         f"{len(dev) / n:.1f} device operations and {launches / n:.1f} graph "
         f"launches per step, {busy_ms:.3f} ms of device time per step, "
         f"device idle {idle:.1f}%; captures {st.captures} ({card})")
-    top = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+    top = sorted((e for e in prof.key_averages()
+                  if not e.key.startswith(PREFIX)),
+                 key=lambda e: -e.self_device_time_total)
     log(f"{label} step ({mode}), largest device times per step: " +
         ", ".join(f"{e.key} {e.self_device_time_total / 1e3 / n:.3f} ms"
                   for e in top[:6]))
@@ -928,7 +884,8 @@ def classic_stage_times(st, wide, card: str, label: str = "classic") -> None:
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / k
     dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.name.startswith(PREFIX)]
     busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / k
     log(f"{label} block under the profiler ({mode}): {len(dev) / k:.1f} "
         f"device operations, {busy_ms:.3f} ms of device time per block of "
@@ -1946,6 +1903,8 @@ def decoder_times(dec, fixture: str, card: str) -> None:
 
 
 def main() -> int:
+    # every station is built traced: the stage times read its spans
+    TRACER.on = True
     card = phase_environment()
     kern = phase_kernel(card)
     workdir = os.path.join(ROOT, "build", "chip_smoke")

@@ -226,7 +226,35 @@ _FLUSH_SUBS = (
     ("jnp.asarray(soft), jnp.asarray(prefixes)",
      "self._tensor(soft), self._tensor(prefixes)"),
     ('np.asarray(dec["info_bits"])', 'dec["info_bits"].cpu().numpy()'),
-    ('np.asarray(dec["su_ok"])', 'dec["su_ok"].cpu().numpy()'),
+    ('np.asarray(dec["su_ok"])\n', 'dec["su_ok"].cpu().numpy()\n'
+     "        if TRACER.on:\n"
+     "            _decoded(n, n_pad)\n"),
+    # the tracer's spans (utils/profiling.py): each round's decode, from
+    # the stack of pending frames to its outputs on the host (closed by
+    # ``_decoded``, which opens the round's bookkeeping), the rewinds'
+    # count, and the bookkeeping's end
+    ("        soft = np.stack(",
+     "        if TRACER.on:\n"
+     '            TRACER.open("framers.decode")\n'
+     "        soft = np.stack("),
+    ("                    assert not evs\n",
+     "                    assert not evs\n"
+     "                    if TRACER.on:\n"
+     '                        TRACER.count("frames.rewound", len(later))\n'),
+    ("        if not rewound:\n",
+     "        if TRACER.on:\n"
+     "            TRACER.close()\n"
+     "        if not rewound:\n"),
+)
+
+# the fused station accounts a group's framer events through its own
+# attribute: the plain function, or with the tracer on its
+# ``framers.dispatch`` span
+_DRAIN_SUBS = (
+    ("np.asarray(packed)", "packed.cpu().numpy()"),
+    ("account_framer_events(self.stats, rate, evs,",
+     "self._account_framer_events(self.stats, rate, evs,"),
+    ("account_framer_events(\n", "self._account_framer_events(\n"),
 )
 
 
@@ -340,7 +368,7 @@ def _pairs():
                                   ts.account_framer_events, ()),
         "quantize": (jf.FusedStation.quantize, tf.FusedStation.quantize, ()),
         "_drain": (jf.FusedStation._drain, tf.FusedStation._drain,
-                   (("np.asarray(packed)", "packed.cpu().numpy()"),)),
+                   _DRAIN_SUBS),
         "vfo_telemetry": (jf.FusedStation.vfo_telemetry,
                           tf.FusedStation.vfo_telemetry, ()),
         "bank.feed": (jb.BatchPChannelFramerBank.feed,

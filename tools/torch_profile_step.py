@@ -16,14 +16,15 @@ the smoke's wideband signal four times, in turns: eager (inside
 - device step: ``_dispatch`` (upload + one step: a CUDA-graph replay, or
   the step's ops one by one) up to ``torch.cuda.synchronize()``;
 - drain: ``_drain``, the packed buffer's copy back, host framing and the
-  batched Viterbi decode on the card, split by stage
-  (``chip_smoke.drain_split``): D2H, the batched decode (a graph replay,
-  or its ops eagerly), the burst watchers' detection statistics and
-  window demods, and the framers (the rest).
+  batched Viterbi decode on the card, split by stage from the port's
+  tracer (switched on before the station is built; the spans' self
+  times, ``chip_smoke.stage_split``): D2H, the batched decode (a graph
+  replay, or its ops eagerly), the burst watchers, the UW search, frame
+  preparation, frame bookkeeping, SU dispatch and the drain's own.
 
 It prints the pass's first block and the median of the blocks after the
 third for each stage, and the drain's split (median and mean per
-drain, the windows' ms each) with the drain steps' captures.  Then, from
+drain) with the drain steps' captures.  Then, from
 the state the pass left, the step alone on one block
 (``chip_smoke.step_times``): the host's enqueue time and the
 CUDA-event device time per step over 10 steps, and under
@@ -54,6 +55,7 @@ from aero_tpu_torch.channelizer import load_ini  # noqa: E402
 from aero_tpu_torch.device import (disable_graphs,  # noqa: E402
                                    set_fp32_precision)
 from aero_tpu_torch.runtime.fused_station import FusedStation  # noqa: E402
+from aero_tpu_torch.utils.profiling import TRACER  # noqa: E402
 
 
 def stages(st, wide, n_blocks: int, card: str, mode: str) -> np.ndarray:
@@ -61,19 +63,20 @@ def stages(st, wide, n_blocks: int, card: str, mode: str) -> np.ndarray:
     median; returns the last quantized block."""
     L = st.block_len
     ms = {"quantize": [], "device step": [], "drain": []}
-    with chip_smoke.drain_split(st, {}) as split:
-        for b in range(n_blocks):
-            t0 = time.perf_counter()
-            arr = st.quantize(wide[b * L:(b + 1) * L])
-            t1 = time.perf_counter()
-            st._pending.append((arr, np.float32(1.0)))
-            st._dispatch()
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            st._drain(st._inflight.popleft())
-            t3 = time.perf_counter()
-            for name, dt in zip(ms, (t1 - t0, t2 - t1, t3 - t2)):
-                ms[name].append(1e3 * dt)
+    TRACER.take()
+    for b in range(n_blocks):
+        t0 = time.perf_counter()
+        arr = st.quantize(wide[b * L:(b + 1) * L])
+        t1 = time.perf_counter()
+        st._pending.append((arr, np.float32(1.0)))
+        st._dispatch()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        st._drain(st._inflight.popleft())
+        t3 = time.perf_counter()
+        for name, dt in zip(ms, (t1 - t0, t2 - t1, t3 - t2)):
+            ms[name].append(1e3 * dt)
+    split = chip_smoke.stage_split(TRACER.take())
     for name, v in ms.items():
         print(f"{mode}: {name}: first block {v[0]:.3f} ms, median of "
               f"blocks 4-{n_blocks} {statistics.median(v[3:]):.3f} ms "
@@ -101,6 +104,7 @@ def main(argv=None) -> int:
         timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
     set_fp32_precision()
+    TRACER.on = True
     st = FusedStation(load_ini(chip_smoke.bank_ini(), is_text=True),
                       ingest_dtype="int4", batch_host_framing=True,
                       pipeline=False, device="cuda")
