@@ -259,3 +259,181 @@ def test_rt_bit_level_same_as_jax(oqpsk):
         res.append((evs, [a.message for a in acars]))
     assert res[1] == res[0] and res[2] == res[0]
     assert [(k, n) for k, n, _ in res[0][0]] == [("R", 0), ("T", 6)]
+
+
+# ---- the detection on the device against the host loop it replaced ------
+#
+# ``process`` keeps the ring on the device and scans the statistics on the
+# host only when the device counts a candidate run.  The oracle
+# (tests/torch_burst_oracle.py) is the host-loop ``process`` of the commit
+# before, fed by the port's own ``_envelope`` and ``_autocorr_rho``: after
+# every block both give the same outputs, the same ring and the same
+# noise floor, bit for bit.
+
+def _t_burst(fs, fb, oqpsk, amplitude=0.3):
+    bits = jrt.build_t_burst(0x123456, 0x41, _acars_sus(), oqpsk=oqpsk,
+                             preamble_bits=128 if oqpsk else 96)
+    if oqpsk:
+        return oqpsk_modulate(bits, fs, fb, freq=7400.0, amplitude=amplitude)
+    return msk_modulate(bits, fs, fb, freq=fs / 4.0 + 60.0,
+                        amplitude=amplitude)
+
+
+def _r_burst(fs, fb, amplitude=0.3):
+    return msk_modulate(jrt.build_r_burst(_r_info(), preamble_bits=96), fs,
+                        fb, freq=fs / 4.0 - 50.0, amplitude=amplitude)
+
+
+# (burst, start sample, SNR dB) of each scenario; "noise" plants none
+_SCENES = {
+    "noise": (24, []),
+    # R and T bursts well above the detector's floor
+    "bursts": (14, [("r", 20000, 10.0), ("t", 70000, 10.0),
+                    ("r", 150000, 14.0)]),
+    # the sensitivity sweep's lowest points, where rho hovers near 0.35
+    "near_threshold": (14, [("r", 9000, -2.0), ("t", 60000, -1.0),
+                            ("r", 140000, -4.0), ("r", 180000, 0.0)]),
+    # a burst across a block edge, a T burst whose window is held over a
+    # block (its gate run ends at the ring's end), one ending on an edge
+    "edges": (16, [("r", 2 * 16000 - 2500, 8.0), ("t", 6 * 16000 - 9000, 8.0),
+                   ("r", 13 * 16000 - 9000, 8.0)]),
+}
+
+
+def _scene(kind, name, seed):
+    """The scenario's signal for an MSK 1200 watcher at 24 kS/s (the L
+    band's R watchers; its T bursts MSK too) or an OQPSK 10500 one at
+    48 kS/s (the C band's T watchers), in blocks of 16000."""
+    fs, fb = (24000.0, 1200.0) if kind == "msk" else (48000.0, 10500.0)
+    blocks, plan = _SCENES[name]
+    rng = np.random.default_rng(seed)
+    ref = _t_burst(fs, fb, kind == "oqpsk")
+    x = np.zeros(blocks * 16000, np.float32)
+    noise = np.sqrt(np.mean(ref ** 2) / 10)
+    for what, start, snr_db in plan:
+        b = (_r_burst(fs, fb) if what == "r" and kind == "msk"
+             else _t_burst(fs, fb, kind == "oqpsk"))
+        if kind == "oqpsk" and what == "r":
+            b = b[: len(b) // 3]                  # a short OQPSK burst
+        gain = noise * np.sqrt(10 ** (snr_db / 10) / np.mean(b ** 2))
+        x[start:start + len(b)] += (gain * b)[: len(x) - start]
+    x += rng.normal(0, noise, len(x)).astype(np.float32)
+    return fs, fb, x
+
+
+def _same_block(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        for k in w:
+            a, b = np.asarray(g[k]), np.asarray(w[k])
+            assert a.dtype == b.dtype and np.array_equal(a, b), k
+
+
+@pytest.mark.parametrize("name", list(_SCENES))
+@pytest.mark.parametrize("kind", ["msk", "oqpsk"])
+def test_process_is_the_host_loop_bit_for_bit(kind, name):
+    """Block by block: the outputs, ``_ring`` and ``_noise_floor`` (the
+    float's bits) of the device-detection ``process`` equal the host
+    loop's.  The burst scenarios emit windows and the noise one none."""
+    from torch_burst_oracle import HostLoop
+    fs, fb, x = _scene(kind, name, seed=len(name))
+    cls = tbm.BurstMskDemodulator if kind == "msk" else tbo.BurstOqpskDemodulator
+    dm = cls(fs, fb, device="cpu")
+    oracle = HostLoop(cls(fs, fb, device="cpu"))
+    bursts = 0
+    for i in range(0, len(x), 16000):
+        got = dm.process(x[i:i + 16000])
+        _same_block(got, oracle.process(x[i:i + 16000]))
+        ring = dm._ring
+        assert ring.dtype == np.float32
+        assert np.array_equal(ring, oracle._ring)
+        assert type(dm._noise_floor) is float
+        assert dm._noise_floor == oracle._noise_floor
+        bursts += sum(o["burst"] for o in got)
+    if name == "noise":
+        assert bursts == 0
+    else:
+        assert bursts >= 2
+
+
+# ---- the three places where the device must round as numpy does ---------
+
+def _percentile_cases():
+    rng = np.random.default_rng(7)
+    yield "random", rng.random(16384).astype(np.float32) * 3
+    yield "tied", rng.integers(0, 5, 16384).astype(np.float32) / 7
+    yield "zeros", np.zeros(16384, np.float32)
+    yield "envelope", np.abs(rng.standard_normal(16384)).astype(
+        np.float32) ** 2 * 1e-3
+
+
+@pytest.mark.parametrize("case", ["random", "tied", "zeros", "envelope"])
+def test_device_q25_is_numpys_percentile(case):
+    """``_q25`` over the first n of a bucket, for n of every residue mod 4
+    (each interpolation weight) down to 1, and 0, equals
+    ``np.percentile(..., 25.0)`` in value and dtype bit for bit; a float64
+    interpolation of the same order statistics would not (on the random
+    arrays)."""
+    x = dict(_percentile_cases())[case]
+    garbage = x.copy()
+    garbage[::3] = -1.0                      # past n: never read
+    idx = torch.arange(len(x))
+    lerp64 = 0
+    for n in (1, 2, 3, 4, 5, 7, 100, 1001, 4098, 9999, 16383, 16384):
+        buf = np.concatenate([x[:n], garbage[n:]])
+        want = np.percentile(x[:n], 25.0)
+        got = tbc._q25(torch.from_numpy(buf), idx < n,
+                       torch.from_numpy(tbc._scan_plan(n, 0.0)))
+        assert got.numpy().dtype == want.dtype
+        assert got.numpy().tobytes() == np.asarray(want).tobytes(), n
+        s = np.sort(x[:n]).astype(np.float64)
+        v = (n - 1) / 4
+        lo = int(v)
+        hi = min(lo + 1, n - 1)
+        lerp64 += float(np.float32(s[lo] + (s[hi] - s[lo]) * (v - lo))) \
+            != float(want)
+    empty = tbc._q25(torch.from_numpy(garbage), idx < 0,
+                     torch.from_numpy(tbc._scan_plan(0, 0.0)))
+    assert empty.item() == 0.0
+    if case == "random":
+        assert lerp64 > 0
+
+
+def test_thresholds_compare_in_float32():
+    """``env > gate_ratio * nf`` and ``rho > rho_threshold`` compare a
+    float32 array with a Python float (not a numpy float64, which would
+    promote), which numpy rounds to float32 first: ``_above``, given the threshold as a float or as a float64 0-d
+    tensor, equals numpy on the float32 values around each threshold,
+    where a float64 comparison differs."""
+    rng = np.random.default_rng(11)
+    nf = rng.random(40) * 1e-2
+    differs = 0
+    for thr in [0.35, 0.1, 1 / 3] + [2.5 * float(v) for v in nf]:
+        t32 = np.float32(thr)
+        x = np.array([np.nextafter(t32, -np.inf), t32,
+                      np.nextafter(t32, np.inf)], np.float32)
+        want = x > thr
+        for t in (thr, torch.tensor(thr, dtype=torch.float64)):
+            got = tbc._above(torch.from_numpy(x), t).numpy()
+            assert np.array_equal(got, want), (thr, got, want)
+        differs += not np.array_equal(x.astype(np.float64) > thr, want)
+    assert differs > 10
+
+
+@pytest.mark.parametrize("min_len", [1, 2, 160, 320, 700])
+def test_long_runs_count_bool_runs(min_len):
+    """``_long_runs`` over the first n of a bucket (the mask past n False,
+    as the arms make it) equals the count of ``_bool_runs`` with its
+    length filter: runs of every length, runs touching both ends of the
+    ring and of the bucket."""
+    rng = np.random.default_rng(min_len)
+    lengths = rng.integers(1, 2 * min_len + 3, 400)
+    mask = np.repeat(np.arange(400) % 2 == 0, lengths)[:16384]
+    mask = np.concatenate([mask, np.ones(16384 - len(mask), bool)])
+    for n in (0, 1, min_len, 5000, 9001, 16383, 16384):
+        m = mask.copy()
+        m[n:] = False
+        want = sum(e - s >= min_len for s, e in tbc._bool_runs(mask[:n]))
+        got = tbc._long_runs(torch.from_numpy(m), min_len)
+        assert int(got) == want, n

@@ -148,6 +148,49 @@ def test_port_checkpoint_has_jax_layout(signal, tmp_path, kind):
             assert got[k] == want[k], k
 
 
+def test_burst_watcher_checkpoint_mid_burst(tmp_path):
+    """A burst watcher saved while a T burst's window is held over a block
+    (its gate run reaches the ring's end), through a file into a fresh
+    watcher: the ring and the noise floor come back exactly, and the
+    resumed watcher emits the uninterrupted watcher's outputs."""
+    from aero_tpu_torch.models.burst_msk import BurstMskDemodulator
+    from aero_tpu_torch.models.msk import msk_modulate
+    from aero_tpu_torch.protocol.isu import make_acars_userdata, segment_isu
+    from aero_tpu_torch.protocol.rt_framing import build_t_burst
+    fs, fb, split = 24000.0, 1200.0, 2
+    sus = segment_isu(make_acars_userdata("2", "N100TP", "!", "H1", "A",
+                                          "HELD OVER A SAVE"), 0x123456, 0x41)
+    burst = msk_modulate(build_t_burst(0x123456, 0x41, sus,
+                                       preamble_bits=96),
+                         fs, fb, freq=fs / 4.0 + 30.0, amplitude=0.3)
+    rng = np.random.default_rng(9)
+    x = rng.normal(0, 0.3 / np.sqrt(20), 6 * 16000).astype(np.float32)
+    start = split * 16000 - 6000
+    x[start:start + len(burst)] += burst
+    blocks = [x[i:i + 16000] for i in range(0, len(x), 16000)]
+
+    def feed(dm, blocks):
+        return [o for b in blocks for o in dm.process(b)]
+    ref = feed(BurstMskDemodulator(fs, fb, device="cpu"), blocks)
+    a = BurstMskDemodulator(fs, fb, device="cpu")
+    assert not any(o["burst"] for o in feed(a, blocks[:split]))
+    assert np.mean(a._ring[-4000:] ** 2) > 3 * np.mean(a._ring[:16000] ** 2)
+    path = str(tmp_path / "burst.npz")
+    np.savez(path, **tck._burst_demod_state(a))
+    b = BurstMskDemodulator(fs, fb, device="cpu")
+    with np.load(path) as z:
+        tck._restore_burst_demod(b, {k: z[k] for k in z.files})
+    assert np.array_equal(b._ring, a._ring) and b._ring.dtype == np.float32
+    assert b._noise_floor == a._noise_floor
+    resumed = feed(b, blocks[split:])
+    assert [o["burst"] for o in resumed] == [o["burst"] for o in ref[split:]]
+    assert sum(o["burst"] for o in resumed) == 1
+    for got, want in zip(resumed, ref[split:]):
+        assert np.array_equal(got["soft_bits"], want["soft_bits"])
+        assert (got["freq"], got["tone_quality"]) == (want["freq"],
+                                                      want["tone_quality"])
+
+
 def test_checkpoint_rejects_wrong_config(tmp_path):
     st = FusedStation(load_ini(INI, is_text=True), device="cpu")
     ckpt = str(tmp_path / "c.npz")

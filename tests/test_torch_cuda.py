@@ -30,6 +30,11 @@ CUDA device is present.  On the card, from the repository root (the
 - the bench's Viterbi and demod sections (``aero_tpu_torch.bench``) time
   positive rates on the card, the Viterbi one through the kernel, whose
   decode equals the twin's and the encoded bits;
+- the burst watchers' detection on the card, its ring there and the host
+  loop only for a block with a candidate, gives the outputs, ring and
+  noise floor of the host-loop oracle (tests/torch_burst_oracle.py) over
+  noise and bursts, one captured key per detection step in the steady
+  state;
 - the device steps as CUDA-graph replays (``utils/graphs.py``): a small
   fused station (4 blocks per step, 2 steps in flight) and a small MSK
   bank with a retune between steps give the same bytes graphed as under
@@ -684,6 +689,42 @@ def test_graphed_burst_demod_equals_eager_across_set_center(cuda):
     assert all(s.captures == 0 for s in edm.steps)
     assert all(s.captures == s.keys > 0 for s in gdm.steps)
     assert before == gdm._window_fn.captures == 1
+
+
+def test_burst_detection_on_card_is_the_host_loop(cuda):
+    """The burst watcher's detection on the card (graphed, its ring on the
+    device, the host loop only for a block with a candidate) against the
+    host-loop oracle of tests/torch_burst_oracle.py on the same card, over
+    300 blocks of noise and a sequence of four R bursts: the same outputs,
+    ring and noise floor (its bits) after every block.  The detection
+    steps capture one graph per ring bucket while the ring fills (16384
+    to 65536 samples, four blocks) and none after: the steady state
+    replays one key each."""
+    from aero_tpu_torch.models.burst_msk import BurstMskDemodulator
+    from torch_burst_oracle import HostLoop
+    fs, fb = 24000.0, 1200.0
+    rng = np.random.default_rng(12)
+    noise = rng.normal(0, 0.05, 300 * 16000).astype(np.float32)
+    bursts = np.concatenate([_r_bursts(fs, fb, seed=4),
+                             _r_bursts(fs, fb, seed=5)])
+    for x in (noise, bursts):
+        dm = BurstMskDemodulator(fs, fb, device=cuda)
+        oracle = HostLoop(BurstMskDemodulator(fs, fb, device=cuda))
+        captures, windows = [], 0
+        for i in range(0, len(x), 16000):
+            got = dm.process(x[i:i + 16000])
+            _same_outputs(got, oracle.process(x[i:i + 16000]))
+            assert np.array_equal(dm._ring, oracle._ring)
+            assert dm._noise_floor == oracle._noise_floor
+            captures.append([s.captures for s in dm.steps[:2]])
+            windows += sum(o["burst"] for o in got)
+        if x is noise:
+            assert windows == 0
+            assert captures[3] == captures[-1] == [4, 4]
+            assert [s.keys for s in dm.steps[:2]] == [4, 4]
+            assert [s.replays for s in dm.steps[:2]] == [300, 300]
+        else:
+            assert windows == 4
 
 
 @pytest.mark.parametrize("kind", ["msk", "oqpsk"])

@@ -491,15 +491,24 @@ def test_batch_decode_step_equals_plain_and_jax(p_frames, n):
 @pytest.mark.parametrize("n_pad", [16384, 32768])
 def test_detection_statistics_steps_equal_plain_and_jax(n_pad):
     """``_envelope`` and ``_autocorr_rho`` as the burst demodulator's
-    graphed steps, on ring buckets of 16384 and 32768 samples: equal to
-    the plain functions, and within 1e-5 of JAX's (relative to the
-    largest value: float32 FFTs and convolutions summed in another
-    order)."""
+    graphed steps (the two detection arms), on ring buckets of 16384 and
+    32768 samples: equal to the plain arms, their statistics equal to the
+    plain functions, and within 1e-5 of JAX's (relative to the largest
+    value: float32 FFTs and convolutions summed in another order)."""
     dm = BurstMskDemodulator(12000, 600, device="cpu")
     x = tbt._burst_audio(12000.0, 600.0, False, seed=5)[:n_pad]
     smooth, lag, det = dm._smooth_len(), 40, 320
-    env = dm._envelope(dm._put(x), smooth)
-    rho = dm._autocorr_rho(dm._put(x), lag, det)
+    plan = torch.from_numpy(tbc._scan_plan(n_pad - 1000, 0.0))
+    power_kw = dict(smooth=smooth, gate_ratio=2.5, min_run=2 * smooth)
+    rho_kw = dict(lag=lag, smooth=det, threshold=0.35, min_run=160)
+    nf = plan[tbc._NF]
+    power = dm._envelope(dm._put(x), plan, nf, **power_kw)
+    corr = dm._autocorr_rho(dm._put(x), plan, **rho_kw)
+    plain = tbc._power_arm(torch.from_numpy(x), plan, nf, **power_kw)
+    assert all(torch.equal(power[k], plain[k]) for k in plain)
+    plain = tbc._rho_arm(torch.from_numpy(x), plan, **rho_kw)
+    assert all(torch.equal(corr[k], plain[k]) for k in plain)
+    env, rho = power["env"], corr["rho"]
     assert torch.equal(env, tbm._envelope(torch.from_numpy(x), smooth))
     assert torch.equal(rho, tbc._autocorr_rho(torch.from_numpy(x), lag, det))
     je = np.asarray(jbm._envelope(x, smooth))

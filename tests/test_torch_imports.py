@@ -12,12 +12,14 @@
    reference's outputs, and the copied functions, methods and modules
    (station accounting, the fused station's ``quantize`` / ``_drain`` /
    ``vfo_telemetry`` / ``vfo_spectrum``, the batched framer bank's
-   ``feed`` / ``flush``, the burst wrapper's ``process``, the R/T framer
-   module, the classic station's ``process``, the checkpoint's host-state
-   helpers, the single-VFO decoder's data path, the parity tool's
-   ``parity``) parse to the same syntax tree as the originals, up to the
-   listed substitutions.  A later fix to ``aero_tpu`` fails here until
-   the port takes it too.
+   ``feed`` / ``flush``, the R/T framer module, the classic station's
+   ``process``, the checkpoint's host-state helpers, the single-VFO
+   decoder's data path, the parity tool's ``parity``) parse to the same
+   syntax tree as the originals, up to the listed substitutions.  A
+   later fix to ``aero_tpu`` fails here until the port takes it too.
+   The burst wrapper's ``process`` runs its detection on the device and
+   is no copy: tests/test_torch_burst.py holds it to the host loop it
+   replaced, block by block.
 """
 
 import ast
@@ -56,7 +58,8 @@ CARD_SIDE = ["chip_smoke.py", "tools/torch_profile_step.py",
              "tools/torch_parity_check.py", "tools/torch_make_fixture.py",
              "tools/frame_diff.py", "tests/torch_soft.py",
              "tests/torch_station_bank.py", "tests/torch_lband54.py",
-             "tests/torch_impair.py", "tests/test_torch_cuda.py"]
+             "tests/torch_impair.py", "tests/torch_burst_oracle.py",
+             "tests/test_torch_cuda.py"]
 
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
@@ -270,21 +273,6 @@ _RT_SUBS = (
     ("viterbi_decode_soft(block[idx])", "self.decoder(block[idx])"),
 )
 
-# the burst wrapper's host logic: where arrays cross to the device
-_PROCESS_SUBS = (
-    ("    from aero_tpu_torch.models.burst_msk import _envelope\n", ""),
-    ("np.asarray(_envelope(padded,",
-     "_host(self._envelope(self._put(padded),"),
-    ("np.asarray(_autocorr_rho(padded,",
-     "_host(self._autocorr_rho(self._put(padded),"),
-    ("self._window_fn(win, gwin.astype(np.float32),",
-     "self._window_fn(self._put(win), self._put(gwin.astype(np.float32)),"),
-    ("np.float32(self.freq_center)",
-     "self._put(np.float32(self.freq_center))"),
-    ('np.asarray(out["soft"])', '_host(out["soft"])'),
-    ('np.asarray(out["active"])', '_host(out["active"])'),
-)
-
 # the port's station state holds tensors, not packed complex planes, and
 # a row is read in the shard that holds it
 _SPECTRUM_SUBS = (
@@ -339,10 +327,8 @@ def _source(mod):
 def _pairs():
     from aero_tpu.runtime import station as js, fused_station as jf
     from aero_tpu.protocol import batch_framing as jb, rt_framing as jr
-    from aero_tpu.models import burst_common as jc
     from aero_tpu_torch.runtime import station as ts, fused_station as tf
     from aero_tpu_torch.protocol import batch_framing as tb, rt_framing as tr
-    from aero_tpu_torch.models import burst_common as tc
     from aero_tpu.runtime import checkpoint as jk, decoder as jd
     from aero_tpu_torch.runtime import checkpoint as tk, decoder as td
     from tools import parity_check as jp, torch_parity_check as tp
@@ -377,8 +363,6 @@ def _pairs():
                        tb.BatchPChannelFramerBank.flush, _FLUSH_SUBS),
         "vfo_spectrum": (jf.FusedStation.vfo_spectrum,
                          tf.FusedStation.vfo_spectrum, _SPECTRUM_SUBS),
-        "burst.process": (jc.BurstWindowDemodulator.process,
-                          tc.BurstWindowDemodulator.process, _PROCESS_SUBS),
         "rt_framing": (_source(jr), _source(tr), _RT_SUBS),
         "parity_check.parity": (jp.parity, tp.parity, ()),
     }
@@ -387,7 +371,7 @@ def _pairs():
 @pytest.mark.parametrize("name", [
     "StationStats", "new_burst_stats", "account_burst_outputs",
     "account_framer_events", "quantize", "_drain", "vfo_telemetry",
-    "bank.feed", "bank.flush", "vfo_spectrum", "burst.process", "rt_framing",
+    "bank.feed", "bank.flush", "vfo_spectrum", "rt_framing",
     "Station.process", "checkpoint.save_classic_checkpoint",
     "parity_check.parity"]
     + [f"checkpoint.{n}" for n in _CHECKPOINT_FUNCS]

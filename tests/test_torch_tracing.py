@@ -229,6 +229,49 @@ def test_counters_agree_with_the_framers(traced):
     assert c["uw.bits"] == sum(searched)
 
 
+def test_burst_counters_in_the_station(traced):
+    """Each drained block scans each burst watcher once; the capture holds
+    no burst, so the host loop runs on few of them (the filterbank's
+    start-up transient can make a candidate)."""
+    st, rec, _ = traced
+    c = rec.counts
+    assert c["burst.scans"] == c["blocks.drained"] * len(st.burst_demods)
+    assert c.get("burst.scans_host", 0) < c["burst.scans"] / 2
+
+
+def test_burst_counters_count_scans_and_host_scans(tracer):
+    """A burst watcher alone, over noise and three R bursts: ``burst.scans``
+    counts every ``process`` and ``burst.scans_host`` the blocks with a
+    candidate detection, as the host loop of tests/torch_burst_oracle.py
+    finds them."""
+    from aero_tpu_torch.models.burst_msk import BurstMskDemodulator
+    from aero_tpu_torch.protocol.rt_framing import build_r_burst
+    from torch_burst_oracle import HostLoop
+    fs, fb, blocks = 24000.0, 1200.0, 16
+    info = (bytes([0x1B, 0x28, 0x0A, 0x0B, 0x0C, 0x77]) + b"COUNTED"
+            ).ljust(17, b"\0")
+    burst = msk_modulate(build_r_burst(info, preamble_bits=96), fs, fb,
+                         freq=fs / 4.0 + 30.0, amplitude=0.3)
+    rng = np.random.default_rng(5)
+    x = rng.normal(0, 0.3 / np.sqrt(20), blocks * 16000).astype(np.float32)
+    for start in (40000, 130000, 190000):
+        x[start:start + len(burst)] += burst
+    tracer.on = True
+    dm = BurstMskDemodulator(fs, fb, device="cpu")
+    oracle = HostLoop(BurstMskDemodulator(fs, fb, device="cpu"))
+    with_candidates = windows = 0
+    for i in range(0, len(x), 16000):
+        n_ring = len(oracle._ring) + 16000
+        windows += sum(o["burst"] for o in dm.process(x[i:i + 16000]))
+        oracle.process(x[i:i + 16000])
+        with_candidates += oracle.candidates(n_ring) > 0
+    counts = tracer.take().counts
+    assert windows == 3
+    assert counts["burst.scans"] == blocks
+    assert counts["burst.scans_host"] == with_candidates
+    assert 3 <= with_candidates < blocks
+
+
 def test_take_keeps_an_open_span_whole(tracer, monkeypatch):
     t = iter(range(0, 100, 10))
     monkeypatch.setattr(tracer, "clock", lambda: next(t))
@@ -284,6 +327,7 @@ def test_station_main_trace_puts_stage_times_in_the_stats_line(
     assert tr["blocks"] == BLOCKS - 2
     assert tr["counts"]["blocks.in"] == BLOCKS
     assert tr["counts"]["uw.locks"] >= 3
+    assert tr["counts"]["burst.scans"] == BLOCKS - 2
     assert {"station.process", "station.drain", "framers.search",
             "framers.prepare", "framers.decode", "framers.finish",
             "framers.dispatch", "drain.burst"} <= set(tr["self_ms"])
