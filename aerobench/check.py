@@ -11,8 +11,10 @@ batched decode against the plain Viterbi.
   matched to the earliest unmatched copy due at most ``SLACK`` blocks
   before the drain that emitted it.
 - Device step.  The packed buffers (soft bits, burst audio, telemetry)
-  the station drained for some blocks against ``ref.step.RefStation``
-  over the same blocks: from the reference's own initial state over the
+  the station drained for some blocks against the configuration's
+  reference (``run.reference_of``: ``ref.step.RefStation`` unless the
+  configuration names a copy, which keeps its wire layout and
+  ``TEL_SLOTS``) over the same blocks: from the reference's own initial state over the
   capture's first blocks, and from a copy of the station's state taken
   just before the window over the window's first blocks.
 - Decode.  Each batched P decode made while those blocks drained, its

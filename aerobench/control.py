@@ -23,7 +23,7 @@ import sys
 import torch
 
 from aerobench import check, traffic
-from aerobench.ref.step import RefStation
+from aerobench.run import load_cell, reference_of
 
 
 def readings(cfg: dict, mix: dict, seed: int, precision: str, device,
@@ -37,10 +37,11 @@ def readings(cfg: dict, mix: dict, seed: int, precision: str, device,
             for v in traffic.bank(cfg)]
     ingest = cfg["station"]["ingest_dtype"]
     hunt = cfg["station"]["hunt"]
-    ctrl = RefStation(vfos, cfg["sample_rate"], ingest, hunt=hunt,
-                      device=device, precision=precision)
-    ref = RefStation(vfos, cfg["sample_rate"], ingest, hunt=hunt,
-                     device=device)
+    ref_station = reference_of(cfg)
+    ctrl = ref_station(vfos, cfg["sample_rate"], ingest, hunt=hunt,
+                       device=device, precision=precision)
+    ref = ref_station(vfos, cfg["sample_rate"], ingest, hunt=hunt,
+                      device=device)
     n_cmp = max(1, math.ceil(compare_s * cfg["sample_rate"] / L))
 
     def block(g):
@@ -69,7 +70,6 @@ def fails(numbers: dict, limits: dict) -> list:
 
 
 def main(argv=None) -> int:
-    from aerobench.run import load_cell
     ap = argparse.ArgumentParser(prog="aerobench.control")
     ap.add_argument("--workload", required=True)
     ap.add_argument("--precision", default="tf32", choices=("fp32", "tf32"))

@@ -34,7 +34,17 @@ batched decode was compared; ``failed`` those that did not come out or
 whose decode differs.  Without a card, or with fewer cards than the
 cell asks for, the run exits 3 and prints no result; it exits 4 and
 prints no result if ``jax``, ``jaxlib``, ``flax`` or the JAX package
-``aero_tpu`` is loaded once the window has closed.
+``aero_tpu`` is loaded once the window has closed; it exits 5 and prints
+no result, before any window, if the program refuses a keyword of the
+configuration's ``station_args``.
+
+A configuration may carry two optional keys.  ``reference`` names the
+module ``aerobench/ref/<reference>.py`` whose ``RefStation`` the run is
+held to (``step`` unless it names another; a copy keeps ``step``'s wire
+layout and imports nothing of the program).  ``station_args`` holds
+keywords that go to ``FusedStation`` as they stand, after the flags of
+``station``, so that a program without the feature a configuration
+needs refuses it at once.
 """
 
 from __future__ import annotations
@@ -58,7 +68,6 @@ import torch  # noqa: E402
 
 from aerobench import check, traffic  # noqa: E402
 from aerobench.probe import Probe  # noqa: E402
-from aerobench.ref.step import RefStation  # noqa: E402
 from aerobench.trace import (Stretch, Trace, device_ops,  # noqa: E402
                              warm_profiler)
 
@@ -117,21 +126,41 @@ def banned_modules() -> list:
                   & set(BANNED))
 
 
+def reference_of(cfg: dict):
+    """The ``RefStation`` class the configuration is held to: that of
+    ``aerobench/ref/<cfg["reference"]>.py``, ``step`` by default."""
+    mod = importlib.import_module(
+        "aerobench.ref." + cfg.get("reference", "step"))
+    return mod.RefStation
+
+
+class Refused(Exception):
+    """The program cannot build the configuration: its station refused a
+    keyword of ``station_args``."""
+
+
 def build_station(cfg: dict, on_acars, on_voice, device):
     """The station as ``station_main.mk_station`` builds it for the
-    configuration's flags."""
+    configuration's flags, then its ``station_args``; raises ``Refused``
+    where the station refuses one of those."""
     from aero_tpu_torch.channelizer import load_ini
     from aero_tpu_torch.runtime.fused_station import FusedStation
     flags = cfg["station"]
-    return FusedStation(load_ini(traffic.ini_text(cfg), is_text=True),
-                        on_acars=on_acars, on_voice=on_voice,
-                        station_id=flags["station_id"],
-                        ingest_dtype=flags["ingest_dtype"],
-                        hunt=flags["hunt"],
-                        pipeline_depth=flags["pipeline_depth"],
-                        blocks_per_step=flags["blocks_per_step"],
-                        batch_host_framing=flags["batch_framing"],
-                        device=device)
+    extra = cfg.get("station_args", {})
+    try:
+        return FusedStation(load_ini(traffic.ini_text(cfg), is_text=True),
+                            on_acars=on_acars, on_voice=on_voice,
+                            station_id=flags["station_id"],
+                            ingest_dtype=flags["ingest_dtype"],
+                            hunt=flags["hunt"],
+                            pipeline_depth=flags["pipeline_depth"],
+                            blocks_per_step=flags["blocks_per_step"],
+                            batch_host_framing=flags["batch_framing"],
+                            device=device, **extra)
+    except (TypeError, ValueError) as e:
+        if not extra:
+            raise
+        raise Refused(str(e)) from e
 
 
 def captures(st) -> int:
@@ -372,8 +401,8 @@ def run_cell(cell: dict, cfg: dict, mix: dict, seed: int, seconds: float,
     miss = check.missing(res)
 
     # the device step against the reference, and the batched decodes
-    ref = RefStation(vfos, fs, ingest, hunt=cfg["station"]["hunt"],
-                     device=device)
+    ref = reference_of(cfg)(vfos, fs, ingest, hunt=cfg["station"]["hunt"],
+                            device=device)
     pairs = []
     streams = {}
     for start, s in ((0, ref.init_state()), (g0, ref.adopt(snapshot))):
@@ -483,8 +512,13 @@ def main(argv=None) -> int:
             f"device_count {torch.cuda.device_count()}")
         return 3
     specs = metrics_of(bench, cell["name"], bool(args.trace))
-    out, info = run_cell(cell, cfg, mix, args.seed, args.seconds,
-                         bool(args.trace), "cuda", specs)
+    try:
+        out, info = run_cell(cell, cfg, mix, args.seed, args.seconds,
+                             bool(args.trace), "cuda", specs)
+    except Refused as e:
+        log(f"aerobench: the program cannot build configuration "
+            f"{cfg['name']}: {e}")
+        return 5
     log("aerobench: " + json.dumps(info))
     if info["banned"]:
         log(f"aerobench: modules of JAX or the JAX package loaded: "

@@ -41,6 +41,9 @@ def test_configs_name_their_files_and_sources():
         assert cfg["reduced"] == c["reduced"]
         assert set(cfg["limits"]) <= {"soft_mad", "soft_off", "audio_mad",
                                       "tel_rel", "flags"}
+        # the reference it names has a RefStation; its keywords are a dict
+        assert isinstance(run.reference_of(cfg), type)
+        assert isinstance(cfg.get("station_args", {}), dict)
 
 
 @pytest.mark.parametrize("name", [m["name"] for m in BENCH["per_layer"]])

@@ -8,9 +8,9 @@ import numpy as np
 import pytest
 import torch
 
-from aerobench import check, roofline, traffic
+from aerobench import check, roofline, run, traffic
 from aerobench.ref import viterbi as ref_viterbi
-from aerobench.ref.step import RefStation, quantize
+from aerobench.ref.step import quantize
 from conftest import tiny_cband, tiny_lband
 
 
@@ -26,7 +26,8 @@ def test_reference_step_equals_the_port_step_on_the_cpu(make):
                       device="cpu")
     vfos = [(v.topic, v.offset_hz, v.data_rate, v.burst)
             for v in traffic.bank(cfg)]
-    ref = RefStation(vfos, cfg["sample_rate"], "int4", device="cpu")
+    ref = run.reference_of(cfg)(vfos, cfg["sample_rate"], "int4",
+                                device="cpu")
     assert ref.packed_len == st._packed_len
     L = tr.block_len
     s_prog, s_ref = st._init_state(), ref.init_state()
@@ -54,7 +55,8 @@ def test_compare_packed_sees_a_changed_byte():
     cfg, _ = tiny_lband()
     vfos = [(v.topic, v.offset_hz, v.data_rate, v.burst)
             for v in traffic.bank(cfg)]
-    ref = RefStation(vfos, cfg["sample_rate"], "int4", device="cpu")
+    ref = run.reference_of(cfg)(vfos, cfg["sample_rate"], "int4",
+                                device="cpu")
     a = np.full(ref.packed_len, 128, np.uint8)
     b = a.copy()
     b[0] = 140
