@@ -4,13 +4,23 @@ Counterpart of ``aero_tpu/channelizer/pfb.py``: ``pfb_prototype`` (the same
 numpy design), ``pfb_init``, ``pfb_channelize``, ``pfb_channelize_fused``,
 ``pfb_bin_for_freq``, ``pfb_extract_vfo`` and the ``PfbChannelizer``
 backend of the classic station.  Channel k of the output is the input mixed down
-by k*fs/K, filtered by the prototype and decimated by the hop M = K/2:
+by k*fs/K, filtered by the prototype and decimated by the hop M:
 
     z[k, m] = sum_j h[j] x[mM - j] exp(-2j pi k (mM - j) / K)
 
 The state is the last L-M input samples (complex64).  In the fused form
 the fold is a depthwise convolution, ``F.conv1d(groups=K)`` over the real
-and imaginary rows (cuDNN on the card, held at full float32).
+and imaginary rows of each hop parity (cuDNN on the card, held at full
+float32).
+
+Two plans, by ``oversample`` = K/M (``pfb_plan``).  The 2x plan is JAX's:
+K = 2*fs/out_rate, M = K/2, bins fs/K apart at half the channel rate and
+``pfb_prototype``'s passband edge at 0.75 of the bin spacing, so a VFO
+more than a quarter bin from its bin's centre loses the outer part of its
+band.  The 4x plan (``pfb_prototype_os4``): K = 4*fs/out_rate, M = K/4,
+the same channel rate and hops per block, bins a quarter of the channel
+rate apart, and a passband that holds a VFO anywhere in its bin with its
+band.
 """
 
 from __future__ import annotations
@@ -40,16 +50,74 @@ def pfb_prototype(K: int, taps_per_branch: int = 8, fs: float = 1.0,
     return (taps / np.sum(taps) * K).astype(np.float32)
 
 
+PLANS = (2, 4)          # oversampling factors K/M a plan may take
+OS4_BETA = 10.0         # the 4x prototype's Kaiser window
+
+
+def pfb_plan(fs: float, out_rate: float, oversample: int = 2) -> tuple:
+    """(K, M) of the plan that gives channels of ``out_rate`` from a
+    wideband stream at ``fs``: K = oversample*fs/out_rate bins, hop M =
+    K/oversample.  ``oversample`` is 2 or 4 (ValueError otherwise)."""
+    if oversample not in PLANS:
+        raise ValueError(f"pfb_oversample {oversample!r}: a filterbank plan "
+                         f"oversamples by one of {PLANS}")
+    K = int(round(oversample * fs / out_rate))
+    assert abs(oversample * fs / out_rate - K) < 1e-9, \
+        f"out_rate {out_rate} incompatible with fs {fs}"
+    return K, K // oversample
+
+
+def pfb_delay(K: int, oversample: int = 2, taps_per_branch: int = 8) -> int:
+    """Input samples from the centre of the prototype (tap (L-2)/2) to the
+    last sample of its frame, L/2 - M: channel k at output m is the input
+    mixed down by k*fs/K, filtered, at sample mM + M - 1, so a component
+    d Hz from the bin's centre leaves it with the phase -2 pi d delay /
+    fs against a mixer at the VFO that runs on the input's clock."""
+    return taps_per_branch * K // 2 - K // oversample
+
+
 @functools.lru_cache(maxsize=None)
-def _tables(K: int, P: int, F_hops: int, device):
+def pfb_prototype_os4(K: int, taps_per_branch: int = 8) -> np.ndarray:
+    """The 4x plan's prototype lowpass, length P*K, for hop M = K/4.
+
+    Bins lie fs/K apart and the channel rate is fs/M = 4 bins, so a VFO
+    lies within half a bin of its bin's centre and its band, B each
+    side of it, within 0.5 bin + B of that centre.  The channel is free
+    of aliases there if the prototype passes 0.5 bin + B flat and stops
+    by 4 bins - (0.5 bin + B), where the first alias lands.  For the C
+    band (fs 1.536 MS/s, 48 kS/s channels: K = 128, 12 kHz bins) B is
+    13.3 kHz for a P or T channel (OQPSK 10500, RRC alpha 1, at +-8 kHz
+    as the station's real audio carries it) and 11.4 kHz for a C channel
+    (8400, alpha 0.6): pass to 19.3 kHz (1.608 bins), stop from 28.7 kHz
+    (2.392 bins); on the 34 kHz raster every VFO lies within 5 kHz of its
+    bin's centre, so 18.3 kHz (1.525 bins) and 29.7 kHz (2.475 bins).
+
+    Design: a windowed sinc of L-1 = P*K - 1 taps (odd, centred) with a
+    zero appended, as ``pfb_prototype``; cutoff at the channel's Nyquist,
+    fs/(2M) = 2 bins; Kaiser window, beta 10; scaled to a DC gain of 2M,
+    the 2x plan's channel gain for the same M.  At P = 8 (every K: the
+    design scales with it) the float64 response, relative to DC: ripple
+    within +-1e-4 dB to 1.525 bins and +-3e-4 dB to 1.608, -3 dB at 1.93
+    bins, at most -88.7 dB from 2.392 bins on and -100.8 dB from 2.475."""
+    L = taps_per_branch * K
+    n = np.arange(L - 1) - (L - 2) / 2.0
+    cut = 2.0 / K
+    taps = 2.0 * cut * np.sinc(2.0 * cut * n) * np.kaiser(L - 1, OS4_BETA)
+    taps = np.append(taps, 0.0)
+    return (taps / np.sum(taps) * (K // 2)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _tables(K: int, P: int, F_hops: int, device, oversample: int = 2):
     """Per-device constants: reversed prototype [P*K], depthwise fold
     weights [K, 1, P], and the output twiddle [F, K].
 
     The twiddle keeps the JAX arithmetic (angle = fl(-2pi * k*r) / K in
     float32, with r = ((m+1)*M) % K): an exactly reduced angle would
     differ from the reference by up to ~3e-5 rad at k*r ~ 16000."""
-    M = K // 2
-    h = pfb_prototype(K, P)
+    M = K // oversample
+    h = (pfb_prototype(K, P) if oversample == 2
+         else pfb_prototype_os4(K, P))
     hrev = np.ascontiguousarray(h[::-1])
     w = np.ascontiguousarray(hrev.reshape(P, K).T[:, None, :])   # [K, 1, P]
     m = np.arange(F_hops, dtype=np.int64)
@@ -62,24 +130,26 @@ def _tables(K: int, P: int, F_hops: int, device):
 
 
 def pfb_init(K: int, taps_per_branch: int = 8, batch_shape=(),
-             device="cpu"):
+             device="cpu", oversample: int = 2):
     L = taps_per_branch * K
-    M = K // 2
+    M = K // oversample
     return torch.zeros(batch_shape + (L - M,), dtype=torch.complex64,
                        device=device)
 
 
-def pfb_channelize(state, x, K: int, taps_per_branch: int = 8):
-    """x: [T] complex wideband (T % (K//2) == 0).
+def pfb_channelize(state, x, K: int, taps_per_branch: int = 8,
+                   oversample: int = 2):
+    """x: [T] complex wideband (T % M == 0, M = K // oversample).
 
-    Returns (new_state, z [K, T//(K//2)]) — K channels, 2x oversampled,
-    channel k centered at k*fs/K (k > K/2 wraps to negative)."""
-    M = K // 2
+    Returns (new_state, z [K, T//M]) — K channels, ``oversample``x
+    oversampled, channel k centered at k*fs/K (k > K/2 wraps to
+    negative)."""
+    M = K // oversample
     P = taps_per_branch
     L = P * K
     T = x.shape[-1]
     F_hops = T // M
-    hrev, _, tw = _tables(K, P, F_hops, x.device)
+    hrev, _, tw = _tables(K, P, F_hops, x.device, oversample)
 
     xp = torch.cat([state, x])                        # [T + L - M]
     frames = xp.unfold(0, L, M)[:F_hops]              # [F, L], frame m at mM
@@ -88,30 +158,35 @@ def pfb_channelize(state, x, K: int, taps_per_branch: int = 8):
     return xp[-(L - M):], z.T.contiguous()
 
 
-def pfb_channelize_fused(state, x, K: int, taps_per_branch: int = 8):
-    """Equal to ``pfb_channelize`` (M = K//2, an even number of hops):
-    frames at even/odd hops align to K-sample rows of the stream, so the
-    fold is a P-tap depthwise convolution along the row axis and each
+def pfb_channelize_fused(state, x, K: int, taps_per_branch: int = 8,
+                         oversample: int = 2):
+    """Equal to ``pfb_channelize`` (M = K // oversample, a whole number of
+    hops of each parity): the frames at hops m = o*q + p (o =
+    ``oversample``) align to K-sample rows of the stream from p*M on, so
+    the fold is a P-tap depthwise convolution along the row axis and each
     wideband sample is read once per parity instead of P times."""
-    M = K // 2
+    o = oversample
+    M = K // o
     P = taps_per_branch
     L = P * K
     T = x.shape[-1]
     F_hops = T // M
-    assert F_hops % 2 == 0, "need an even number of hops per block"
-    _, w, tw = _tables(K, P, F_hops, x.device)
+    assert F_hops % o == 0, "need a whole number of hops of each parity"
+    _, w, tw = _tables(K, P, F_hops, x.device, o)
 
     xp = torch.cat([state, x])                        # [T + L - M]
-    Q = F_hops // 2
-    rows_e = xp[: (Q + P - 1) * K].reshape(Q + P - 1, K)
-    rows_o = xp[M: M + (Q + P - 1) * K].reshape(Q + P - 1, K)
+    Q = F_hops // o
+    planes = []
+    for p in range(o):
+        rows = xp[p * M: p * M + (Q + P - 1) * K].reshape(Q + P - 1, K)
+        planes += [rows.real, rows.imag]
     # out[q, k] = sum_c hrev[c*K + k] * rows[q + c, k]: one grouped conv
-    # over the four real rows (even/odd parity x real/imag)
-    rows = torch.stack([rows_e.real, rows_e.imag, rows_o.real, rows_o.imag])
-    y = F.conv1d(rows.transpose(1, 2), w, groups=K)   # [4, K, Q]
-    fe = torch.complex(y[0], y[1]).T                  # [Q, K]
-    fo = torch.complex(y[2], y[3]).T
-    folded = torch.stack([fe, fo], dim=1).reshape(F_hops, K)
+    # over the 2*o real rows (parity x real/imag)
+    y = F.conv1d(torch.stack(planes).transpose(1, 2), w,
+                 groups=K)                            # [2o, K, Q]
+    folded = torch.stack([torch.complex(y[2 * p], y[2 * p + 1]).T
+                          for p in range(o)],         # o x [Q, K]
+                         dim=1).reshape(F_hops, K)
     z = torch.fft.fft(folded, dim=-1) * tw
     return xp[-(L - M):], z.T.contiguous()
 
@@ -188,9 +263,7 @@ class PfbChannelizer:
             self.groups[s.out_rate].append(i)
         self._steps = {}
         for out_rate, idxs in self.groups.items():
-            K = int(round(2 * self.fs / out_rate))
-            assert abs(2 * self.fs / out_rate - K) < 1e-9, \
-                f"out_rate {out_rate} incompatible with fs {self.fs}"
+            K, _ = pfb_plan(self.fs, out_rate)
             bins = []
             resid = []
             for i in idxs:

@@ -75,7 +75,9 @@ def fused_state_from_numpy(tree, device="cpu") -> dict:
     {"pfb": {out_rate: [2, N] f32}, "grp": {key: {"phase", "demod",
     "hunt"}}} with complex64 PFB carries and a batched demod state, an
     ``MskState`` or ``OqpskState`` by the data rate of the group key
-    (out_rate, data_rate, burst).  A burst group has only "phase"."""
+    (out_rate, data_rate, burst).  A burst group has only "phase", and
+    on the 4x filterbank plan an OQPSK one "chan" too (its low-pass's
+    carry, float32 [n, taps - 1])."""
     out = {"pfb": {}, "grp": {}}
     for rate, planes in tree["pfb"].items():
         out["pfb"][rate] = planes_to_c64(planes, device)
@@ -87,6 +89,8 @@ def fused_state_from_numpy(tree, device="cpu") -> dict:
         if "hunt" in g:
             ng["hunt"] = {k: _to_tensor(np.asarray(v), device)
                           for k, v in g["hunt"].items()}
+        if "chan" in g:
+            ng["chan"] = _to_tensor(np.asarray(g["chan"]), device)
         out["grp"][key] = ng
     return out
 

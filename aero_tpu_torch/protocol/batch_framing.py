@@ -146,7 +146,8 @@ class TracedPChannelFramer(PChannelFramer):
     decodes its own frames (not deferred) spans each frame's bookkeeping
     (``framers.finish``); in a bank the flush spans it.  Counters:
     ``uw.searches``, ``uw.bits`` (bits correlated), ``uw.locks``,
-    ``uw.losses``, ``frames.cut``."""
+    ``uw.losses``, ``frames.cut``, ``frames.reflipped`` (frames after
+    which an OQPSK arm's polarity was read anew from the UW)."""
 
     def feed(self, soft_bytes, slip=0):
         with TRACER.span("framers.prepare" if self.locked
@@ -165,6 +166,12 @@ class TracedPChannelFramer(PChannelFramer):
     def _prepare_frame(self, frame):
         TRACER.count("frames.cut")
         return super()._prepare_frame(frame)
+
+    def _rederive_arm_flip(self, arm_errors):
+        flipped = super()._rederive_arm_flip(arm_errors)
+        if flipped:
+            TRACER.count("frames.reflipped")
+        return flipped
 
     def _finish_frame(self, pre, infofield, su_ok_in):
         if self.defer_decode:

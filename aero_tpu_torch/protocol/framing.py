@@ -22,6 +22,13 @@ Frame layout (ref: decode/aerol.cpp:960-1039 setSettings, 1060-2038 Decode):
 - SUs: infofield splits into 12-byte signal units, CRC-16 checked
   (aerol.cpp:1531-1543); DCD hysteresis +2 per good SU / -3 per bad, on at
   >2, capped 12 (aerol.cpp:1546-1556).
+
+A copy of ``aero_tpu/protocol/framing.py`` but for one repair: an OQPSK
+framer (arm-duplicated UW) reads each arm's polarity from the UW in front
+of every frame, not only from the UW it locked on
+(``PChannelFramer._rederive_arm_flip``).  The reference keeps the lock's
+polarity while the lock lasts, so an arm that flips under a held lock
+fails every SU's CRC from then on.
 """
 
 from __future__ import annotations
@@ -183,7 +190,10 @@ class PChannelFramer:
     OQPSK arm inversion handling (phase-invariant detectors,
     aerol.cpp:1089-1152) is enabled with ``phase_invariant=True``: each
     arm's polarity is estimated from the UW match and soft bits are
-    conditionally flipped per arm.
+    conditionally flipped per arm.  With an arm-duplicated UW (OQPSK
+    10500) the polarity is read again from each frame's trailing UW for
+    the frame after it, so a carrier that slips to another lock point
+    while the framer stays locked costs at most the frame it slipped in.
     """
 
     def __init__(self, rate: int, phase_invariant: bool | None = None,
@@ -351,10 +361,12 @@ class PChannelFramer:
         uw_hard = (uw >= 128).astype(np.int32)
         r = spec.uw_repeat
         if self.phase_invariant:
-            uw_errors = 0
-            for arm in range(r):
-                e = int(np.sum(uw_hard[arm::r] != self._uw_pattern[arm::r]))
-                uw_errors += min(e, len(uw) // r - e)
+            arm_errors = [int(np.sum(uw_hard[arm::r]
+                                     != self._uw_pattern[arm::r]))
+                          for arm in range(r)]
+            uw_errors = sum(min(e, len(uw) // r - e) for e in arm_errors)
+            if r > 1:
+                self._rederive_arm_flip(arm_errors)
         else:
             uw_errors = int(np.sum(uw_hard != self._uw_pattern))
 
@@ -364,6 +376,20 @@ class PChannelFramer:
             [payload[b * blocklen:(b + 1) * blocklen][didx]
              for b in range(spec.blocks_per_frame)])
         return {"soft": soft, "frameinfo": frameinfo, "uw_errors": uw_errors}
+
+    def _rederive_arm_flip(self, arm_errors: list) -> bool:
+        """Each arm's polarity for the next frame, from the UW in front of
+        it: this frame's trailing UW, whose bit errors per arm
+        (``arm_errors``) were counted with the polarity this frame was read
+        with.  An arm more than half of whose UW bits read wrong has
+        flipped since (the test ``_calibrate_arm_flip`` makes at lock).
+        Returns whether an arm flipped."""
+        n = len(self._uw_pattern) // self.spec.uw_repeat
+        toggle = np.array([e > n // 2 for e in arm_errors])
+        if not toggle.any():
+            return False
+        self._arm_flip = self._arm_flip ^ toggle
+        return True
 
     def _maybe_relock(self, uw_errors: int):
         """UW mismatch -> back to searching.

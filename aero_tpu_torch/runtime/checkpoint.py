@@ -19,6 +19,10 @@ maps the (module, name) pairs of ``aero_tpu.protocol.isu`` and
 ``aero_tpu_torch.protocol.isu`` onto the port's copies (it never imports
 the JAX package) and refuses any other class.
 
+A station on the 4x filterbank plan (``FusedStation(pfb_oversample=4)``)
+adds one entry, ``meta_pfb_oversample``; a file without it is of the 2x
+plan, JAX's.  A load refuses a file of another plan than the station's.
+
 A sharded station saves its whole state in this one layout (its
 ``_state`` and its banks' ``states`` gather the shards), and a load
 re-shards onto the station's mesh, so a file crosses between sharded
@@ -291,6 +295,8 @@ def save_station_checkpoint(st, path: str, residual=None):
     entries["meta_gain"] = np.float64(st._gain)
     entries["meta_ingest"] = np.asarray(st.ingest_dtype)
     entries["meta_block_len"] = np.int64(st.block_len)
+    if st.pfb_oversample != 2:
+        entries["meta_pfb_oversample"] = np.int64(st.pfb_oversample)
     _save_topics(st, entries, topics)
     for k, v in vars(st.stats).items():
         entries[f"stat_{k}"] = np.asarray(v)
@@ -316,6 +322,13 @@ def load_station_checkpoint(st, path: str):
         if str(z["meta_ingest"]) != st.ingest_dtype:
             raise ValueError(f"checkpoint ingest_dtype {z['meta_ingest']} "
                              f"!= station {st.ingest_dtype}")
+        plan = (int(z["meta_pfb_oversample"])
+                if "meta_pfb_oversample" in z.files else 2)
+        if plan != st.pfb_oversample:
+            raise ValueError(f"checkpoint filterbank plan pfb_oversample="
+                             f"{plan} != station {st.pfb_oversample}: the "
+                             "filterbank carries and residual phases "
+                             "belong to the plan")
         template = convert.fused_state_to_numpy(st._state)
         leaves = _device_leaves(z, template)
         st._state = convert.fused_state_from_numpy(

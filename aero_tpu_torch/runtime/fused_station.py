@@ -42,10 +42,29 @@ runs ahead of the host framing) before the host copies the oldest back.
 ``shard(mesh)`` cuts every per-VFO carry over a device mesh
 (``parallel/mesh.py``); each shard then steps its rows on its device, and
 the shards' outputs are joined into the one packed buffer of JAX's layout.
+
+``pfb_oversample``: the filterbank plan (``channelizer/pfb.py``).  2, the
+default, is JAX's: K = 2*fs/out_rate bins, hop K/2, a passband that holds
+a VFO's band only near its bin's centre.  4: K = 4*fs/out_rate, hop K/4,
+the same channel rate, block and packed layout, bins half as far apart
+and a prototype that passes a VFO anywhere in its bin with its band (the
+C band's 34 kHz raster puts VFOs up to 11 kHz from a 24 kHz bin's
+centre, 5 kHz from a 12 kHz one's).  On the 4x plan each VFO's residual
+mix also starts at the phase of the filterbank's delay
+(``channelizer/pfb.py:pfb_delay``), so the mix runs on the input's clock
+as a mixer at the VFO would: a VFO d Hz from its bin's centre otherwise
+leaves the filterbank with its carrier turned by 2 pi d delay / fs, and
+the real part of a signal carried on both sides of the VFO scales by the
+cosine of that angle (on the 2x plan, JAX's, whose residual phases start
+at 0, a C-band VFO 5 kHz off its bin's centre keeps 0.13 of its
+amplitude, an L-band VFO half a bin off none).  The state's filterbank
+carry is L - M samples of the plan; a checkpoint restores only into a
+station of the same plan.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import time
 from collections import defaultdict, deque
@@ -56,7 +75,8 @@ import torch
 from aero_tpu_torch.channelizer.config import ChannelizerConfig
 from aero_tpu_torch.channelizer.pfb import (pfb_channelize,
                                             pfb_channelize_fused,
-                                            pfb_bin_for_freq, pfb_init)
+                                            pfb_bin_for_freq, pfb_delay,
+                                            pfb_init, pfb_plan)
 from aero_tpu_torch.device import resolve_device
 from aero_tpu_torch.models import msk as _msk
 from aero_tpu_torch.models import oqpsk as _oq
@@ -90,6 +110,39 @@ AUDIO_I16_SCALE = 4096.0
 # signal / mse / ebno / freq / slip
 TEL_SLOTS = 5
 
+# the 4x plan's low-pass for a burst OQPSK watcher's audio
+WATCHER_TAPS = 63
+WATCHER_BETA = 7.5
+WATCHER_CUTOFF_HZ = 15400.0
+
+
+@functools.lru_cache(maxsize=None)
+def _watcher_taps(out_rate: float, M: int, device) -> torch.Tensor:
+    """The low-pass a burst OQPSK (T) watcher's real audio takes on the 4x
+    plan before it leaves the device as int16, as conv1d weights [1, 1,
+    63]: a Kaiser-windowed sinc (beta 7.5) cut at 15.4 kHz.  At 48 kS/s it
+    passes 13.25 kHz (the watcher's 8 kHz carrier plus the 5.25 kHz half
+    band of OQPSK 10500 at RRC alpha 1) within 1e-3 dB and stops from 17.5
+    kHz by 78 dB.  Its DC gain 1/(2M) undoes the filterbank's channel gain
+    2M, so the audio reads the wideband amplitude times the station's
+    gain, and the int16 audio's +-8 holds a carrier at the level the int4
+    ingest is scaled for.
+
+    Why: the 4x prototype passes a neighbour 34 kHz away from 15.7 kHz
+    off a bin's centre, and its near side lands in a watcher's audio from
+    18.6 kHz up (a VFO 5 kHz off its bin's centre); at the channel gain a
+    T burst at level 0.1 reads 64 and the noise alone 5 of the int16
+    audio's 8.  The watcher beside a C channel found no burst in the
+    neighbour's energy, and the hard-limited long bursts of others failed
+    their CRCs.  The 2x plan's narrower prototype stops most of that
+    neighbour; its watchers' audio is left as JAX makes it."""
+    n = np.arange(WATCHER_TAPS) - (WATCHER_TAPS - 1) / 2.0
+    fc = WATCHER_CUTOFF_HZ / out_rate
+    h = 2.0 * fc * np.sinc(2.0 * fc * n) * np.kaiser(WATCHER_TAPS,
+                                                     WATCHER_BETA)
+    h = (h / np.sum(h) / (2 * M)).astype(np.float32)
+    return torch.from_numpy(h[None, None, :]).to(device)
+
 
 def _traced_account(stats, data_rate, evs, dispatcher=None) -> None:
     """``account_framer_events`` as a ``framers.dispatch`` span, for a
@@ -97,6 +150,19 @@ def _traced_account(stats, data_rate, evs, dispatcher=None) -> None:
     if evs:
         with TRACER.span("framers.dispatch"):
             account_framer_events(stats, data_rate, evs, dispatcher)
+
+
+def _traced_c_feed(feed):
+    """A C-channel framer's ``feed`` as a ``framers.c`` span (its UW
+    search, each frame's deinterleave and Viterbi decode, the voice sink),
+    its frames counted in ``c.frames``."""
+    def call(soft_bytes, slip=0):
+        with TRACER.span("framers.c"):
+            evs = feed(soft_bytes, slip=slip)
+        if evs:
+            TRACER.count("c.frames", len(evs))
+        return evs
+    return call
 
 
 class FusedStation:
@@ -108,7 +174,8 @@ class FusedStation:
                  pipeline_depth: int = 2, blocks_per_step: int = 1,
                  base_block: int = 16000, hunt: bool = True,
                  hunt_max_tries: int = 6, aircraft_db=None,
-                 batch_host_framing: bool = False, device="cuda"):
+                 batch_host_framing: bool = False, pfb_oversample: int = 2,
+                 device="cuda"):
         assert not cfg.mains, "FusedStation serves sub-VFO banks only"
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -145,16 +212,17 @@ class FusedStation:
         self.groups = dict(groups)
         self._order = sorted(self.groups)
 
+        self.pfb_oversample = pfb_oversample
         self._M = {}
         self._K = {}
         for out_rate, _, _ in self.groups:
-            K = int(round(2 * self.fs / out_rate))
-            assert abs(2 * self.fs / out_rate - K) < 1e-9
-            self._K[out_rate], self._M[out_rate] = K, K // 2
+            self._K[out_rate], self._M[out_rate] = pfb_plan(
+                self.fs, out_rate, pfb_oversample)
         self.block_len = max(base_block * M for M in self._M.values())
 
         self._group_cfg = {}
         self._params = {}
+        self._phase0 = {}
         self._hunt_cfg = {}
         self.topics = {}
         self.framers = {}
@@ -167,13 +235,18 @@ class FusedStation:
             out_rate, rate, burst = key
             K = self._K[out_rate]
             F = self.block_len // self._M[out_rate]
-            bins, resid = [], []
+            bins, resid, phase0 = [], [], []
+            delay = (pfb_delay(K, pfb_oversample) if pfb_oversample == 4
+                     else 0)
             for i in idxs:
                 delta = cfg.subs[i].freq - cfg.center_frequency
                 k = pfb_bin_for_freq(delta, self.fs, K)
                 kc = k if k < K // 2 else k - K
+                d = delta - kc * self.fs / K      # Hz from the bin's centre
                 bins.append(k)
-                resid.append(-(delta - kc * self.fs / K) / out_rate)
+                resid.append(-d / out_rate)
+                phase0.append((d * delay / self.fs) % 1.0)
+            self._phase0[key] = np.asarray(phase0, np.float32)
             self._params[key] = (
                 torch.as_tensor(np.asarray(bins, np.int64),
                                 device=self.device),
@@ -216,8 +289,10 @@ class FusedStation:
             if rate == 8400:
                 # C channels: voice + signalling framers, never the bank
                 for t in group_topics:
-                    self.framers[t] = CChannelFramer(
+                    f = self.framers[t] = CChannelFramer(
                         on_voice=self._mk_voice_sink(t))
+                    if TRACER.on:
+                        f.feed = _traced_c_feed(f.feed)
                 continue
             if batch_host_framing:
                 # one batched decode per drain for all pending frames of
@@ -285,6 +360,8 @@ class FusedStation:
     def _mk_voice_sink(self, topic):
         def sink(data, hex_aes):
             self.stats.voice_frames += 1
+            if TRACER.on:
+                TRACER.count("voice.frames")
             self.on_voice(topic, data, hex_aes)
         return sink
 
@@ -293,17 +370,26 @@ class FusedStation:
     def _init_state(self):
         """{"pfb": {out_rate: complex64 [L-M]}, "grp": {key: {"phase" [nb],
         "demod": MskState or OqpskState [nb, ...], "hunt": {"tries",
-        "center"} [nb]}}}; a burst group carries only "phase"
-        (``convert`` maps it to and from the JAX station's tree)."""
+        "center"} [nb]}}}; a burst group carries only "phase", and on the
+        4x plan an OQPSK one "chan" too (float32 [nb, 62], its low-pass's
+        carry) (``convert`` maps it to and from the JAX station's tree).
+        The residual phases start at ``_phase0``: 0 on the 2x plan, the
+        filterbank's delay on the 4x plan."""
         st = {"pfb": {}, "grp": {}}
         for out_rate, K in self._K.items():
-            st["pfb"][out_rate] = pfb_init(K, device=self.device)
+            st["pfb"][out_rate] = pfb_init(K, device=self.device,
+                                           oversample=self.pfb_oversample)
         for key, idxs in self.groups.items():
             nb = len(idxs)
-            g = {"phase": torch.zeros(nb, dtype=torch.float32,
-                                      device=self.device)}
+            g = {"phase": torch.as_tensor(self._phase0[key],
+                                          device=self.device)}
             st["grp"][key] = g
             if key[2]:
+                if key[1] > 1200 and self.pfb_oversample == 4:
+                    # the OQPSK watcher's low-pass carry
+                    g["chan"] = torch.zeros(nb, WATCHER_TAPS - 1,
+                                            dtype=torch.float32,
+                                            device=self.device)
                 continue
             mod, dcfg = self._group_cfg[key]
             init = mod.msk_init if mod is _msk else mod.oqpsk_init
@@ -495,12 +581,13 @@ class FusedStation:
         dev = x.device
         new = {"pfb": {}, "grp": {}}
         z_by_rate = {}
+        o = self.pfb_oversample
         for out_rate, K in self._K.items():
             chan = (pfb_channelize_fused
-                    if (x.shape[-1] // (K // 2)) % 2 == 0
+                    if (x.shape[-1] // self._M[out_rate]) % o == 0
                     else pfb_channelize)
             new["pfb"][out_rate], z_by_rate[out_rate] = chan(
-                state["pfb"][out_rate], x, K)
+                state["pfb"][out_rate], x, K, oversample=o)
         parts = {}
         for key in self._order:
             out_rate = key[0]
@@ -522,7 +609,14 @@ class FusedStation:
             new["grp"][key] = ng
             if key[2]:
                 # burst VFOs: int16 audio for the host window demodulators,
-                # its RMS and peak in the first two telemetry slots
+                # its RMS and peak in the first two telemetry slots; on
+                # the 4x plan an OQPSK watcher's audio is its band only
+                if "chan" in gst:
+                    hist = torch.cat([gst["chan"], audio], dim=1)
+                    ng["chan"] = hist[:, F:]
+                    audio = torch.nn.functional.conv1d(
+                        hist[:, None, :], _watcher_taps(
+                            out_rate, self._M[out_rate], dev))[:, 0]
                 a16 = torch.clamp(torch.round(audio * AUDIO_I16_SCALE),
                                   -32767, 32767).to(torch.int16)
                 rms = torch.sqrt(torch.mean(audio * audio, dim=1))

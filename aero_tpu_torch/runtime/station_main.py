@@ -13,8 +13,10 @@ ACARS application decoders (ADS-C, CPDLC) before it is printed.
 station's format.  ``--trace`` switches the port's tracer on
 (``utils/profiling.py``): the stats lines and the SIGHUP dump then carry
 each stage's self ms per drained block and each counter's change since
-the last line.  The JAX-only ``--platform`` / ``--compile-cache`` are
-absent.
+the last line.  ``--pfb-oversample 4`` builds the fused station on the
+4x filterbank plan (``FusedStation(pfb_oversample=4)``), which holds a
+VFO anywhere in its bin; 2, the default, is JAX's plan.  The JAX-only
+``--platform`` / ``--compile-cache`` are absent.
 
 Usage:
   python -m aero_tpu_torch.runtime.station_main -c settings.ini \
@@ -86,6 +88,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-hunt", action="store_true",
                    help="disable per-VFO signal hunting (the reference's "
                         "SignalHunter scan; ref decode/decode.cpp:161-226)")
+    p.add_argument("--pfb-oversample", type=int, default=2, choices=(2, 4),
+                   help="the fused station's filterbank plan: 2 (JAX's: "
+                        "K = 2 fs / channel rate, hop K/2) or 4 (K = 4 fs "
+                        "/ channel rate, hop K/4: a VFO anywhere in its "
+                        "bin keeps its band)")
     p.add_argument("--trace", action="store_true",
                    help="trace the station: the stats lines and the "
                         "SIGHUP dump carry each stage's self ms per "
@@ -107,6 +114,9 @@ def main(argv=None, on_station=None) -> int:
     afterwards)."""
     parser = build_parser()
     args = parser.parse_args(argv)
+    if args.pfb_oversample != 2 and args.backend != "fused":
+        parser.error("--pfb-oversample is the fused station's plan; "
+                     f"--backend {args.backend} has its own channelizer")
     from aero_tpu_torch.channelizer import load_ini
     from aero_tpu_torch.device import resolve_device, set_fp32_precision
     from aero_tpu_torch.io.output import to_output_format
@@ -147,6 +157,7 @@ def main(argv=None, on_station=None) -> int:
                                 aircraft_db=args.aircraft_db,
                                 hunt=not args.no_hunt,
                                 batch_host_framing=args.batch_framing,
+                                pfb_oversample=args.pfb_oversample,
                                 device=device)
         from aero_tpu_torch.runtime.station import Station
         n_vfos = len(cfg.mains) + len(cfg.subs)

@@ -335,6 +335,44 @@ def test_cband_step_on_card_matches_cpu(cuda):
     assert tel[o: o + nb].sum() > 0, "no P VFO was locked at the step"
 
 
+def test_cband_step_on_the_4x_plan_on_card_matches_cpu(cuda):
+    """The C-band step on the 4x filterbank plan (its 4-parity fold, the
+    residual mixes from the filterbank's delay, the T watcher's low-pass)
+    on the card against the CPU, from a state the card carried."""
+    from aero_tpu_torch import convert
+    from aero_tpu_torch.channelizer import load_ini
+    from aero_tpu_torch.protocol.crc import append_crc16_bytes
+    from aero_tpu_torch.runtime.fused_station import FusedStation
+
+    fs = 288000
+    layout = cband_layout(2, 2, 2, 34000)
+    rng = np.random.default_rng(4)
+    cframes = [([append_crc16_bytes(bytes([0x30]) + bytes(
+        rng.integers(0, 256, 9).tolist())) for _ in range(3)],
+        bytes(rng.integers(0, 256, 300).tolist())) for _ in range(2)]
+    content = {"P00": ("P", ["CARD PLAN"]), "C03": ("C", cframes),
+               "T04": ("T", "CARD PLAN BURST", 0.5)}
+    cfg = load_ini(cband_ini(fs, layout), is_text=True)
+    card = FusedStation(cfg, ingest_dtype="int4", pfb_oversample=4,
+                        device=cuda)
+    cpu = FusedStation(cfg, ingest_dtype="int4", pfb_oversample=4,
+                       device="cpu")
+    L = card.block_len
+    wide = cband_wideband(fs, layout, content, 5 * L, seed=2)
+    for b in range(4):
+        card.process(wide[b * L:(b + 1) * L])
+    card.flush()
+    arr = card.quantize(wide[4 * L:])
+    state_np = convert.fused_state_to_numpy(card._state)
+    one = np.float32(1.0)
+    _, gp = card._step(convert.fused_state_from_numpy(state_np, cuda),
+                       torch.from_numpy(arr).to(cuda),
+                       torch.tensor(one, device=cuda))
+    _, cp = cpu._step(convert.fused_state_from_numpy(state_np, "cpu"),
+                      torch.from_numpy(arr), torch.tensor(one))
+    check_packed(card, gp.cpu().numpy(), cp.numpy())
+
+
 @pytest.mark.parametrize("backend", ["tree", "pfb"])
 def test_classic_station_on_card_matches_cpu(cuda, backend):
     """The classic station (tree channelizer or filterbank, then the demod

@@ -40,8 +40,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "aero_tpu_torch")
 
 VERBATIM = ["protocol/crc.py", "protocol/scrambler.py",
-            "protocol/interleaver.py", "protocol/framing.py",
-            "protocol/isu.py", "protocol/acars.py", "protocol/su_dispatch.py",
+            "protocol/interleaver.py", "protocol/isu.py", "protocol/acars.py", "protocol/su_dispatch.py",
             "protocol/database.py", "protocol/c_framing.py",
             "channelizer/config.py", "ops/design.py", "io/output.py",
             "io/forwarder.py", "utils/signals.py", "utils/logging.py",

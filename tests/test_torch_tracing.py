@@ -332,3 +332,38 @@ def test_station_main_trace_puts_stage_times_in_the_stats_line(
             "framers.prepare", "framers.decode", "framers.finish",
             "framers.dispatch", "drain.burst"} <= set(tr["self_ms"])
     assert all(v >= 0 for v in tr["self_ms"].values())
+
+
+def test_station_main_trace_splits_out_the_c_framers(tmp_path, capsys,
+                                                     tracer):
+    """A C-band bank on the 4x filterbank plan (two P, two C and a T
+    watcher at 288 kS/s, voice on a C channel): the C channels' framers
+    are a ``framers.c`` span in the drain, their frames and the voice
+    frames out are counted."""
+    from aero_tpu_torch.protocol.crc import append_crc16_bytes as crc
+    from test_torch_cuda import cband_ini, cband_layout, cband_wideband
+    fs = 288000
+    layout = cband_layout(2, 2, 1, 48000)
+    rng = np.random.default_rng(6)
+    cframes = [([crc(bytes([0x30]) + bytes(rng.integers(0, 256, 9).tolist()))
+                 for _ in range(3)], bytes(rng.integers(0, 256, 300).tolist()))
+               for _ in range(6)]
+    wide = cband_wideband(fs, layout, {"P00": ("P", ["TRACE C"]),
+                                       "C02": ("C", cframes)},
+                          12 * 96000, seed=2)
+    ini, iq, voice = (tmp_path / "c.ini", tmp_path / "c.cf32",
+                      tmp_path / "voice.bin")
+    ini.write_text(cband_ini(fs, layout))
+    wide.tofile(iq)
+    assert station_main.main(
+        ["-c", str(ini), "--iq-file", str(iq), "--device", "cpu",
+         "--batch-framing", "--ingest-dtype", "int4", "--pfb-oversample",
+         "4", "--voice-out", str(voice), "--stats-every", "0",
+         "--trace"]) == 0
+    tr = _stats(capsys.readouterr().err)[-1]["trace"]
+    assert tr["self_ms"]["framers.c"] > 0
+    # the stats line comes before the flush's drains
+    n_voice = voice.stat().st_size // 300
+    assert 4 <= tr["counts"]["voice.frames"] <= n_voice
+    # each C frame decoded gives its voice frame
+    assert tr["counts"]["c.frames"] == tr["counts"]["voice.frames"]
