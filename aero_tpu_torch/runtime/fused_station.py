@@ -19,7 +19,9 @@ device,
 and only that buffer leaves the device; its layout is byte-compatible with
 the JAX station's.  Host work is the same code as in JAX: P-channel
 framers (batched decode on the station's device with ``--batch-framing``),
-C-channel framers (voice + signalling) for 8400, and for burst VFOs the
+C-channel framers (voice + signalling) for 8400 (with ``--batch-framing``
+a drain's C frames decode in one batched call on the station's device,
+``protocol/batch_c_framing.py``), and for burst VFOs the
 burst window demodulators and R/T framers, whose window functions,
 detection statistics and checkpoint Viterbi decodes run on the station's
 device.
@@ -86,6 +88,7 @@ from aero_tpu_torch.ops.nco import cis, fused_mul_add
 from aero_tpu_torch.ops.viterbi_kernel import stream_decoder
 from aero_tpu_torch.parallel.mesh import (Mesh, gather, gather_tree,
                                           replicate, shard_over_vfo)
+from aero_tpu_torch.protocol.batch_c_framing import BatchCChannelFramerBank
 from aero_tpu_torch.protocol.batch_framing import TracedPChannelFramer
 from aero_tpu_torch.protocol.c_framing import CChannelFramer
 from aero_tpu_torch.protocol.framing import PChannelFramer, apply_slip
@@ -154,8 +157,10 @@ def _traced_account(stats, data_rate, evs, dispatcher=None) -> None:
 
 def _traced_c_feed(feed):
     """A C-channel framer's ``feed`` as a ``framers.c`` span (its UW
-    search, each frame's deinterleave and Viterbi decode, the voice sink),
-    its frames counted in ``c.frames``."""
+    search and frame cuts; the sequential framer's Viterbi decodes, or a
+    C bank's flush on its group's last framer, whose batched decode is a
+    ``framers.c.decode`` span; the voice sinks), its frames counted in
+    ``c.frames``."""
     def call(soft_bytes, slip=0):
         with TRACER.span("framers.c"):
             evs = feed(soft_bytes, slip=slip)
@@ -231,6 +236,7 @@ class FusedStation:
         self.rt_framers = {}
         self.burst_stats = {}
         self._batch_banks = {}
+        self._c_banks = {}
         for key, idxs in self.groups.items():
             out_rate, rate, burst = key
             K = self._K[out_rate]
@@ -287,10 +293,21 @@ class FusedStation:
             self._hunt_cfg[key] = (lo, hi, bw, dcfg.freq_center)
             group_topics = self.topics[key]
             if rate == 8400:
-                # C channels: voice + signalling framers, never the bank
-                for t in group_topics:
-                    f = self.framers[t] = CChannelFramer(
-                        on_voice=self._mk_voice_sink(t))
+                # C channels: voice + signalling framers.  With batched
+                # framing the group's frames decode in one call per drain
+                # on the station's device, which the group's last
+                # framer's feed makes (a C bank, never in
+                # ``_batch_banks``: those are P banks)
+                sinks = {t: self._mk_voice_sink(t) for t in group_topics}
+                if batch_host_framing:
+                    bank = self._c_banks[key] = BatchCChannelFramerBank(
+                        group_topics, on_voice=sinks, device=self.device)
+                    framers = bank.framers
+                else:
+                    framers = {t: CChannelFramer(on_voice=sinks[t])
+                               for t in group_topics}
+                for t, f in framers.items():
+                    self.framers[t] = f
                     if TRACER.on:
                         f.feed = _traced_c_feed(f.feed)
                 continue

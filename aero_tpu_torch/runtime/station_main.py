@@ -76,8 +76,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "frame, as decoded) to this file")
     p.add_argument("--batch-framing", action="store_true",
                    help="fused backend: decode all P-channel frames of a "
-                        "rate group in ONE batched call per drain (the "
-                        "CUDA Viterbi kernel on the card)")
+                        "rate group, and all C-channel frames, in ONE "
+                        "batched call per drain (the CUDA Viterbi kernel "
+                        "on the card)")
     p.add_argument("--checkpoint", default=None, metavar="FILE",
                    help="resume from FILE at startup when it exists, and "
                         "save the full station state there periodically "

@@ -46,7 +46,8 @@ and banks' device steps run as CUDA-graph replays, the port's default):
    on 1 T watcher, noise on every VFO.  Every planted message must come
    out on its VFO (no bad SU on the content P VFOs), the voice file must
    hold the planted 300-byte frames in order, the kernel must have been
-   launched by the P bank and by the R/T framers (counted apart), and
+   launched by the P bank, by the C bank and by the R/T framers (counted
+   apart), and
    the station's state tensors must live on the card.
 6. One step of the C-band station on the card against the same step on
    the host CPU, as phase 4.
@@ -411,6 +412,7 @@ def run_station_main(argv, box, heard, su, err=None, prepare=None):
             prepare(st)
         box["st"] = st
         box["rt"] = count_rt_launches(st)
+        box["c"] = count_c_launches(st)
         emit = st.on_acars
 
         def on_acars(topic, item):
@@ -457,6 +459,21 @@ def count_rt_launches(st) -> list:
             box[0] += vk.LAUNCHES - before
             return bits
         fr.decoder = counted
+    return box
+
+
+def count_c_launches(st) -> list:
+    """Wrap each C bank's batched decode (a station with batched framing
+    and C channels) so that the kernel launches it makes are counted
+    apart from the P banks'; returns the one-element counter."""
+    box = [0]
+    for bank in getattr(st, "_c_banks", {}).values():
+        def counted(rows, _run=bank._run):
+            before = vk.LAUNCHES
+            out = _run(rows)
+            box[0] += vk.LAUNCHES - before
+            return out
+        bank._run = counted
     return box
 
 
@@ -596,7 +613,7 @@ def phase_cband(card: str, workdir: str) -> dict:
             "--stats-every", "1e9"]
     records, launches = run_station_main(argv, box, heard, su)
     st = box["st"]
-    rt = box["rt"][0]
+    rt, c = box["rt"][0], box["c"][0]
     log(f"C-band path: {len(records)} jsondump records, {len(heard)} ACARS, "
         f"frames {st.stats.frames}, su_ok {st.stats.su_ok}, su_bad "
         f"{st.stats.su_bad}, voice frames {st.stats.voice_frames}, burst "
@@ -624,9 +641,10 @@ def phase_cband(card: str, workdir: str) -> dict:
                                   if v in planted] != planted:
                 raise AssertionError("the voice file does not hold the "
                                      "planted frames in order")
-    if launches - rt <= 0 or rt <= 0:
-        raise AssertionError(f"kernel launches: P bank {launches - rt}, "
-                             f"R/T framers {rt}; both must be > 0")
+    if launches - rt - c <= 0 or rt <= 0 or c <= 0:
+        raise AssertionError(f"kernel launches: P bank {launches - rt - c}"
+                             f", C bank {c}, R/T framers {rt}; each must "
+                             "be > 0")
     devs = {t.device.type for t in _state_tensors(st._state)}
     if devs != {"cuda"}:
         raise AssertionError(f"station state on {devs}, expected cuda")
@@ -634,11 +652,11 @@ def phase_cband(card: str, workdir: str) -> dict:
     rtf = st.stats.realtime_factor / FS
     per_block = 1e3 * st.stats.wall_seconds / max(n, 1)
     log(f"C-band path: {n} blocks, kernel launches {launches} (P bank "
-        f"{launches - rt}, R/T framers {rt}), realtime factor {rtf:.2f}x, "
-        f"{per_block:.1f} ms per block (host wall clock incl. first-block "
-        f"warm-up; {card})")
-    return {"station": st, "launches": launches, "rt": rt, "ini": ini,
-            "iq": iq, "layout": layout, "content": content}
+        f"{launches - rt - c}, C bank {c}, R/T framers {rt}), realtime "
+        f"factor {rtf:.2f}x, {per_block:.1f} ms per block (host wall clock "
+        f"incl. first-block warm-up; {card})")
+    return {"station": st, "launches": launches, "rt": rt, "c": c,
+            "ini": ini, "iq": iq, "layout": layout, "content": content}
 
 
 # a fused station's drain stages as the tracer names them
@@ -1491,6 +1509,12 @@ def _fused_run(argv, prepare=None) -> tuple:
                                           np.asarray(su_ok).tobytes()))
                     return _f(pre, info, su_ok)
                 framer._finish_frame = finish
+        for bank in getattr(st, "_c_banks", {}).values():
+            for topic, framer in bank.framers.items():
+                def c_finish(item, out, _f=framer._finish, _t=topic):
+                    rec["frames"].append((_t, np.asarray(out).tobytes()))
+                    return _f(item, out)
+                framer._finish = c_finish
         _record_bursts(st, rec)
     box, heard = {}, []
     run_station_main(argv, box, heard, {}, prepare=hook)
@@ -1601,11 +1625,12 @@ def device_steps(st) -> list:
 
 def drain_steps(st) -> dict:
     """The graphed steps a station runs in its drain or host loop, by
-    name: each framer bank's batched decode (a key per padded batch) and
-    each burst watcher's detection statistics (a key per ring bucket) and
-    window function (one key)."""
-    out = {f"{key} {bank._decode.name}": bank._decode
-           for key, bank in getattr(st, "_batch_banks", {}).items()}
+    name: each framer bank's batched decode, P or C (a key per padded
+    batch) and each burst watcher's detection statistics (a key per ring
+    bucket) and window function (one key)."""
+    banks = [*getattr(st, "_batch_banks", {}).items(),
+             *getattr(st, "_c_banks", {}).items()]
+    out = {f"{key} {bank._decode.name}": bank._decode for key, bank in banks}
     for topic, dm in getattr(st, "burst_demods", {}).items():
         out.update({f"{topic} {s.name}": s for s in dm.steps})
     return out
@@ -1967,7 +1992,8 @@ def main() -> int:
                 + benched["launches"])
     log(f"kernel launches on the main paths: {launches} (L-band "
         f"{lband['launches']}, C-band P bank "
-        f"{cband['launches'] - cband['rt']}, C-band R/T framers "
+        f"{cband['launches'] - cband['rt'] - cband['c']}, C-band C bank "
+        f"{cband['c']}, C-band R/T framers "
         f"{cband['rt']}, classic 54W R/T framers {classic['rt']}, pfb "
         f"{pfb['launches']}, sharded L-band {sharded['launches']} (P bank "
         f"{sharded['launches'] - sharded['rt']}, R/T framers "

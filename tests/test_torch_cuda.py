@@ -30,6 +30,9 @@ CUDA device is present.  On the card, from the repository root (the
 - the bench's Viterbi and demod sections (``aero_tpu_torch.bench``) time
   positive rates on the card, the Viterbi one through the kernel, whose
   decode equals the twin's and the encoded bits;
+- the C channels' bank (``protocol/batch_c_framing.py``), its decode a
+  graph per padded N that launches the kernel, gives the host framers'
+  events, voice and trellis history on noisy streams;
 - the burst watchers' detection on the card, its ring there and the host
   loop only for a block with a candidate, gives the outputs, ring and
   noise floor of the host-loop oracle (tests/torch_burst_oracle.py) over
@@ -685,6 +688,52 @@ def test_graphed_batch_decode_equals_eager_and_counts_launches(cuda):
     assert e_launches == g_launches == len(batches)
     assert e_step.captures == 0
     assert g_step.captures == g_step.keys == 3 and g_step.replays == 5
+
+
+def test_c_bank_on_card_equals_the_host_framers(cuda):
+    """The C bank on the card (``protocol/batch_c_framing.py``: one
+    graphed decode per flush, the Viterbi kernel inside) against the
+    sequential host framers on the same noisy streams of 8 VFOs (an
+    inverted arm, a call-progress hex that changes, a dropout, drains of
+    one and of two frames a VFO): equal events, voice calls and trellis
+    history after every drain; one capture per padded N, one kernel
+    launch per flush that had frames."""
+    from aero_tpu_torch.protocol.batch_c_framing import (
+        BatchCChannelFramerBank)
+    from aero_tpu_torch.protocol.c_framing import CChannelFramer
+    from torch_c_streams import FRAME, c_stream, feed_round
+    hexes = (b"\x12\x34\x56", b"\xab\xcd\xef")
+    kws = [{}, {"invert_arm": 1}, {"hexes": hexes}, {"sigma": 0.6},
+           {"dropout": (3 * FRAME + 700, 5000)}, {"invert_arm": 0}, {},
+           {"hexes": hexes}]
+    streams = {f"C{i:02d}": c_stream(70 + i, 8, **kw)
+               for i, kw in enumerate(kws)}
+    calls = {"seq": [], "card": []}
+    seq = {t: CChannelFramer(on_voice=lambda d, h, t=t: calls["seq"].append(
+        (t, d, h))) for t in streams}
+    bank = BatchCChannelFramerBank(
+        list(streams), device=cuda,
+        on_voice={t: (lambda d, h, t=t: calls["card"].append((t, d, h)))
+                  for t in streams})
+    vk.reset_launches()
+    pads, pos, r = set(), 0, 0
+    n = max(len(v) for v in streams.values())
+    while pos < n:
+        block = 9000 if r % 5 == 4 else 2800
+        want = feed_round(seq, streams, pos, block)
+        got = feed_round(bank.framers, streams, pos, block)
+        assert got == want, f"drain {r}"
+        assert calls["card"] == calls["seq"], f"drain {r}"
+        for t in streams:
+            np.testing.assert_array_equal(bank.framers[t].viterbi._carry,
+                                          seq[t].viterbi._carry)
+        if want:
+            pads.add(1 << (len(want) - 1).bit_length())
+        pos, r = pos + block, r + 1
+    torch.cuda.synchronize()
+    assert len(calls["seq"]) >= 50 and len(pads) >= 2
+    assert bank._decode.captures == bank._decode.keys == len(pads)
+    assert vk.LAUNCHES == bank._decode.replays
 
 
 def _r_bursts(fs, fb, seed):

@@ -10,7 +10,10 @@ R burst watcher), fed block by block and flushed:
   stages' self times and its own add up to its duration, and the
   counters agree with what the framers and the batched decode did;
 - ``station_main --trace`` puts stage times and counter changes in its
-  stats line, and without the flag the line is as before.
+  stats line, and without the flag the line is as before;
+- on a small C-band bank with batched framing, each drain's batched C
+  decode is a span inside the C framers', and its counters agree with
+  the frames and voice out.
 """
 
 import json
@@ -367,3 +370,41 @@ def test_station_main_trace_splits_out_the_c_framers(tmp_path, capsys,
     assert 4 <= tr["counts"]["voice.frames"] <= n_voice
     # each C frame decoded gives its voice frame
     assert tr["counts"]["c.frames"] == tr["counts"]["voice.frames"]
+
+
+def test_the_c_bank_decode_is_a_span_inside_the_c_framers(tracer):
+    """A C-band bank with batched framing (a P and two C VFOs on the 4x
+    plan, voice on both C): each drain that cuts C frames decodes them in
+    one ``framers.c.decode`` span inside ``framers.c``, counted in
+    ``c.decode.calls``; ``c.decode.rows`` counts the frames decoded, which
+    ``c.frames`` and ``voice.frames`` count too, and on the CPU (the
+    native decoder, row by row) no row is padding."""
+    from test_torch_cuda import cband_ini, cband_layout, cband_wideband
+    from torch_c_streams import c_frames
+    fs, L = 288000, 96000
+    layout = cband_layout(1, 2, 0, 48000)
+    rng = np.random.default_rng(9)
+    wide = cband_wideband(fs, layout, {t: ("C", c_frames(rng, 4))
+                                       for t in ("C01", "C02")},
+                          12 * L, seed=5)
+    tracer.on = True
+    voice = []
+    st = FusedStation(load_ini(cband_ini(fs, layout), is_text=True),
+                      ingest_dtype="int4", pfb_oversample=4,
+                      batch_host_framing=True, device="cpu",
+                      on_voice=lambda v, d, h: voice.append(v))
+    for b in range(12):
+        st.process(wide[b * L:(b + 1) * L])
+    st.flush()
+    tracer.on = False
+    rec = tracer.take()
+    c = rec.counts
+    dec = [i for i in range(len(rec)) if rec.label(i) == "framers.c.decode"]
+    assert dec and all(rec.label(rec.parent[i]) == "framers.c" for i in dec)
+    # one decode in each drain that decoded any (a record per block)
+    assert all(rec.calls[i] == 1 for i in dec)
+    assert c["c.decode.calls"] == len(dec) == len({rec.block[i]
+                                                   for i in dec})
+    assert len(voice) >= 6
+    assert (c["c.decode.rows"] == c["c.decode.rows_launched"]
+            == c["c.frames"] == c["voice.frames"] == len(voice))
