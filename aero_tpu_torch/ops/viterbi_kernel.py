@@ -15,6 +15,10 @@ with ``ctypes``.
 - a CUDA tensor must hold uint8 soft bytes (``TypeError`` otherwise) and
   launches the kernel, or raises: there is no fallback.
 
+``viterbi_decode_rows(soft [B, 2T])`` is the framer banks' decode: on a
+card the kernel, as above; on the CPU the native host decoder
+(``native/viterbi.cc``) row by row where it is built, else the twin.
+
 B is the grid (one block of one warp per stream).  T is not padded to a
 chunk multiple; on a card it is bounded by the block's shared memory (the
 stream's soft bytes and one 8-byte decision word per step): ``max_t``
@@ -40,6 +44,7 @@ import subprocess
 import numpy as np
 import torch
 
+from aero_tpu_torch import native
 from aero_tpu_torch.protocol.viterbi import viterbi_decode_soft
 from aero_tpu_torch.utils.graphs import count_launch
 
@@ -158,6 +163,20 @@ def viterbi_decode_soft_cuda(soft: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"viterbi kernel launch failed: cudaError {err}")
     count_launch(_count_launch)
     return bits
+
+
+def viterbi_decode_rows(soft: torch.Tensor) -> torch.Tensor:
+    """The framer banks' batched decode: soft bytes [B, 2T] -> bits [B, T]
+    uint8.  A CUDA tensor: ``viterbi_decode_soft_cuda``, the kernel.  A CPU
+    tensor: the native host decoder row by row where it is built (the
+    sequential framers' decoder, bit-exact with the twin and far faster on
+    the host), else the plain-torch twin."""
+    if soft.device.type != "cpu" or not native.have_native():
+        return viterbi_decode_soft_cuda(soft)
+    bits = np.empty((soft.shape[0], soft.shape[1] // 2), np.uint8)
+    for i, row in enumerate(soft.numpy()):
+        bits[i] = native.viterbi_decode_soft_native(row)
+    return torch.from_numpy(bits)
 
 
 def soft_to_bytes(soft) -> np.ndarray:

@@ -14,14 +14,17 @@ one static gather, and 48 neutral lookahead bits -- the buffer
 as they stand at the cut.  The history (``viterbi._carry``) moves on at
 the cut, as the decode moves it, so a checkpoint reads the same state.
 
-``BatchCChannelFramerBank.flush`` decodes every queued row in one call:
+``BatchCChannelFramerBank.feed`` takes a drain's rows, one per topic, as
+the P bank's ``feed`` does: every framer cuts its frames, then one flush
+decodes every queued row in one call:
 
-    Viterbi          the CUDA kernel on a card (uint8 rows, padded to a
-                     power of two with 128s, one graphed step per padded
-                     N: ``batch_decode_c_frames``); on the CPU the native
+    Viterbi          ``ops/viterbi_kernel.py:viterbi_decode_rows``: the
+                     CUDA kernel on a card (uint8 rows, padded to a power
+                     of two with 128s, one graphed step per padded N:
+                     ``batch_decode_c_frames``); on the CPU the native
                      host decoder row by row where it was built (the
                      sequential framer's), else the kernel's plain-torch
-                     twin on the batch
+                     twin, on the rows as they are
     descramble       XOR with the keystream
     gather, pack     the 3 SUs' 288 signalling bits and the 2400 voice
                      bits, packed LSB-first into 36 + 300 bytes
@@ -42,9 +45,8 @@ import functools
 import numpy as np
 import torch
 
-from aero_tpu_torch import native
 from aero_tpu_torch.ops.viterbi_kernel import (soft_to_bytes,
-                                               viterbi_decode_soft_cuda)
+                                               viterbi_decode_rows)
 from aero_tpu_torch.protocol.batch_framing import crc16_check_batch
 from aero_tpu_torch.protocol.c_framing import (C_MESSAGE_NAMES, FRAME_BITS,
                                                GROUP, INFO_BITS, UW_PAIR,
@@ -121,30 +123,23 @@ def c_frame_outputs(bits):
 def batch_decode_c_frames(soft):
     """Rows of soft bytes [N, ROW] (history, depunctured payload,
     lookahead) -> [N, OUT_BYTES] uint8 (``c_frame_outputs``).  A CUDA
-    tensor must be uint8 and decodes with the kernel; a CPU tensor with
-    its plain-torch twin."""
-    return c_frame_outputs(viterbi_decode_soft_cuda(soft))
+    tensor must be uint8 and decodes with the kernel; a CPU tensor on the
+    host (``viterbi_decode_rows``)."""
+    return c_frame_outputs(viterbi_decode_rows(soft))
 
 
 class DeferredCChannelFramer(CChannelFramer):
-    """``CChannelFramer`` whose frames decode in a bank's flush.  ``feed``
-    runs the parent's loop and queues each frame cut in ``_pending``;
-    it returns no event, except on the framer whose ``flush_group`` is
-    set (a group's last), which then flushes the bank and returns the
-    group's events."""
+    """``CChannelFramer`` whose frames decode in a bank's flush: its
+    ``feed`` runs the parent's loop, queues each frame it cuts in
+    ``_pending`` and returns one None per frame queued."""
 
     def __init__(self, on_voice=None, on_call_progress=None,
                  uw_tolerance: int = 6):
         super().__init__(on_voice, on_call_progress, uw_tolerance)
         self._pending = []      # (frame index, row, UW errors) per cut
-        self.flush_group = None
         # a payload and the neutral bit a depuncture inserts: the gather's
         # source
         self._src = np.full(FRAME_BITS + 1, 128.0, np.float32)
-
-    def feed(self, soft_bytes: np.ndarray, slip: int = 0) -> list:
-        super().feed(soft_bytes, slip)   # one None per frame queued
-        return [] if self.flush_group is None else self.flush_group()
 
     def _decode_frame(self, frame: np.ndarray) -> None:
         """The cut: the parent's arm flip, UW score and lock loss, then
@@ -190,16 +185,14 @@ class DeferredCChannelFramer(CChannelFramer):
 
 class BatchCChannelFramerBank:
     """C-channel framers, one per topic, with ONE batched decode per
-    flush.  ``on_voice`` maps a topic to its voice sink.  The last
-    topic's framer flushes the bank at the end of its ``feed``, so a
-    caller that feeds every framer once per block, in topic order (the
-    fused station's drain), decodes the block's frames in one call and
-    takes the group's events, in topic and cut order, from the last
-    feed.  ``flush`` returns those events.
+    drain: ``feed(rows)``, the P bank's interface.  ``on_voice`` maps a
+    topic to its voice sink.
 
-    Built while the tracer is on, a flush is a ``framers.c.decode`` span
-    (stack, pad, the decode, its outputs on the host), counted in
-    ``c.decode.calls``, ``c.decode.rows`` (frames) and
+    While the tracer is on, a feed is a ``framers.c`` span (the framers'
+    UW search and frame cuts, the flush, the voice sinks), its frames
+    counted in ``c.frames``, and inside it a flush is a
+    ``framers.c.decode`` span (stack, pad, the decode, its outputs on the
+    host), counted in ``c.decode.calls``, ``c.decode.rows`` (frames) and
     ``c.decode.rows_launched`` (rows with the padding)."""
 
     def __init__(self, topics, on_voice=None, device="cpu"):
@@ -209,38 +202,53 @@ class BatchCChannelFramerBank:
                                  "batch_decode_c_frames", self.device)
         self.framers = {t: DeferredCChannelFramer(on_voice=on_voice.get(t))
                         for t in topics}
-        self.framers[topics[-1]].flush_group = self.flush
 
-    def flush(self) -> list:
-        """Decode every queued frame and finish them: their events, each
-        framer's in cut order, framer by framer."""
-        pend = [(f, item) for f in self.framers.values()
+    def feed(self, rows: dict) -> dict:
+        """rows: {topic: soft float array}, slips realigned.  Every
+        framer cuts its frames, then one flush decodes them all.  Returns
+        {topic: [CFrameEvent]}, each topic's in cut order."""
+        with TRACER.span("framers.c"):
+            for t, row in rows.items():
+                self.framers[t].feed(row)
+            out = self.flush()
+        n = sum(len(evs) for evs in out.values())
+        if n:
+            TRACER.count("c.frames", n)
+        return out
+
+    def flush(self) -> dict:
+        """Decode every queued frame and finish them, framer by framer in
+        cut order: {topic: [CFrameEvent]}."""
+        out = {t: [] for t in self.framers}
+        pend = [(t, item) for t, f in self.framers.items()
                 for item in f._pending]
         if not pend:
-            return []
+            return out
         for f in self.framers.values():
             f._pending = []
         if TRACER.on:
             TRACER.open("framers.c.decode")
-        out, launched = self._run(np.stack([row for _, (_, row, _) in pend]))
+        dec, launched = self._run(np.stack([row for _, (_, row, _) in pend]))
         if TRACER.on:
             TRACER.close()
             TRACER.count("c.decode.calls")
             TRACER.count("c.decode.rows", len(pend))
             TRACER.count("c.decode.rows_launched", launched)
-        return [f._finish(item, out[i]) for i, (f, item) in enumerate(pend)]
+        for i, (t, item) in enumerate(pend):
+            out[t].append(self.framers[t]._finish(item, dec[i]))
+        return out
 
     def _run(self, rows: np.ndarray):
         """Rows [n, ROW] (float32 soft values) -> (their outputs [n,
         OUT_BYTES] uint8 numpy, rows decoded with the padding)."""
         n = len(rows)
-        if self.device.type == "cpu" and native.have_native():
-            bits = np.stack([native.viterbi_decode_soft_native(r)
-                             for r in rows])
-            return c_frame_outputs(torch.from_numpy(bits)).numpy(), n
+        if self.device.type == "cpu":
+            # eager on the host: float32 rows, no graph to key, no padding
+            return self._decode(torch.from_numpy(rows)).numpy(), n
         # uint8 bytes for the kernel on a card (whole numbers in 0..255,
-        # checked on the host), float32 for the twin on the CPU
-        soft = rows if self.device.type == "cpu" else soft_to_bytes(rows)
+        # checked on the host), padded to a power of two: one graph per
+        # padded N
+        soft = soft_to_bytes(rows)
         n_pad = 1 << (n - 1).bit_length()
         if n_pad > n:
             soft = np.concatenate(

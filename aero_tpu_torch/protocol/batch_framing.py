@@ -4,9 +4,10 @@ Counterpart of ``aero_tpu/protocol/batch_framing.py``.  BATCHES of aligned
 frames, from many VFOs and/or many frames per VFO, decode in one call:
 
     deinterleave     gather with the static 64xN permutation
-    Viterbi          the CUDA kernel for a CUDA tensor of soft bytes
-                     (uint8; ops/viterbi_kernel.py), its plain-torch twin
-                     for a CPU tensor
+    Viterbi          ``ops/viterbi_kernel.py:viterbi_decode_rows``: the
+                     CUDA kernel for a CUDA tensor of soft bytes (uint8);
+                     for a CPU tensor the native host decoder row by row
+                     where it is built, else the kernel's plain-torch twin
     descramble       XOR with the broadcast keystream row
     CRC-16           GF(2) affine map as a 0/1 float32 matmul: the CRC of
                      an 80-bit SU body is linear over GF(2), so
@@ -16,9 +17,10 @@ Host code only finds UW alignments and slices frames.  Trellis continuity
 across frames is kept by passing each frame's 62-soft-bit history prefix.
 
 ``BatchPChannelFramerBank`` runs the decode as a graphed step
-(``utils/graphs.py``), the counterpart of JAX's jit with ``rate``,
-``use_pallas`` and ``pre_deinterleaved`` static: on a card one CUDA graph
-per (rate, padded N) -- the bank pads N to a power of two, so a run
+(``utils/graphs.py``), the counterpart of JAX's jit with ``rate`` and
+``pre_deinterleaved`` static (JAX's ``use_pallas`` has no counterpart:
+the tensor's device picks the decoder): on a card one CUDA graph per
+(rate, padded N) -- the bank pads N to a power of two, so a run
 captures a handful -- whose replay launches the Viterbi kernel.
 """
 
@@ -34,7 +36,7 @@ from aero_tpu_torch.protocol.scrambler import SCRAMBLE_KEYSTREAM
 from aero_tpu_torch.protocol.interleaver import deinterleave_indices
 from aero_tpu_torch.protocol.framing import FRAME_SPECS, PChannelFramer
 from aero_tpu_torch.ops.viterbi_kernel import (soft_to_bytes,
-                                               viterbi_decode_soft_cuda)
+                                               viterbi_decode_rows)
 from aero_tpu_torch.utils.graphs import stateless
 from aero_tpu_torch.utils.profiling import TRACER
 
@@ -87,7 +89,6 @@ def crc16_check_batch(su_bits):
 
 
 def batch_decode_p_frames(soft_payloads, prefixes, *, rate: int,
-                          use_pallas: bool = False,
                           pre_deinterleaved: bool = False):
     """Decode N aligned P-channel frame payloads in one call.
 
@@ -95,16 +96,13 @@ def batch_decode_p_frames(soft_payloads, prefixes, *, rate: int,
     correction); prefixes: [N, 62] soft bytes of the coded stream
     immediately before each payload (128s when unknown).  Both are tensors
     on one device: a CUDA tensor decodes with the CUDA kernel, and must
-    then be uint8; a CPU tensor decodes with its plain-torch twin in
-    float32 (uint8 payloads keep the buffer in uint8, anything else is
-    taken as float32).  With ``pre_deinterleaved`` the payloads are
-    already in coded-stream order.  ``use_pallas`` is accepted for
-    signature compatibility with the JAX version and ignored: the device
-    of the input picks the decoder.
+    then be uint8; a CPU tensor decodes on the host
+    (``viterbi_decode_rows``; uint8 payloads keep the buffer in uint8,
+    anything else is taken as float32).  With ``pre_deinterleaved`` the
+    payloads are already in coded-stream order.
 
     Returns dict(info_bits [N, info] uint8, su_ok [N, n_su] bool).
     """
-    del use_pallas
     spec = FRAME_SPECS[rate]
     dt = torch.uint8 if soft_payloads.dtype == torch.uint8 else torch.float32
     soft_payloads = soft_payloads.to(dt)
@@ -123,7 +121,7 @@ def batch_decode_p_frames(soft_payloads, prefixes, *, rate: int,
         [prefixes.to(device=dev, dtype=dt), deint,
          torch.full((N, LOOKAHEAD), 128, dtype=dt, device=dev)],
         dim=1).contiguous()
-    bits_all = viterbi_decode_soft_cuda(buf)
+    bits_all = viterbi_decode_rows(buf)
 
     h = HISTORY // 2
     info = torch.bitwise_xor(bits_all[:, h: h + spec.payload_info_bits], ks)
@@ -142,9 +140,8 @@ class TracedPChannelFramer(PChannelFramer):
     framer that starts it unlocked searches (``framers.search``: buffer,
     hard decisions, UW correlation, a lock's arm calibration), a locked
     one prepares frames (``framers.prepare``: buffer, frame cut, arm
-    flip, deinterleave, the deferral's bookkeeping).  A framer that
-    decodes its own frames (not deferred) spans each frame's bookkeeping
-    (``framers.finish``); in a bank the flush spans it.  Counters:
+    flip, deinterleave, the deferral's bookkeeping); the bank's flush spans
+    each frame's bookkeeping (``framers.finish``).  Counters:
     ``uw.searches``, ``uw.bits`` (bits correlated), ``uw.locks``,
     ``uw.losses``, ``frames.cut``, ``frames.reflipped`` (frames after
     which an OQPSK arm's polarity was read anew from the UW)."""
@@ -172,12 +169,6 @@ class TracedPChannelFramer(PChannelFramer):
         if flipped:
             TRACER.count("frames.reflipped")
         return flipped
-
-    def _finish_frame(self, pre, infofield, su_ok_in):
-        if self.defer_decode:
-            return super()._finish_frame(pre, infofield, su_ok_in)
-        with TRACER.span("framers.finish"):
-            return super()._finish_frame(pre, infofield, su_ok_in)
 
     def _maybe_relock(self, uw_errors):
         locked = self.locked
@@ -213,11 +204,9 @@ class BatchPChannelFramerBank:
     bookkeeping, the rewinds, counted in ``frames.rewound``).
     """
 
-    def __init__(self, rate: int, topics, use_pallas: bool = False,
-                 device="cpu"):
+    def __init__(self, rate: int, topics, device="cpu"):
         framer = TracedPChannelFramer if TRACER.on else PChannelFramer
         self.rate = rate
-        self.use_pallas = use_pallas
         self.device = torch.device(device)
         self._decode = stateless(batch_decode_p_frames,
                                  f"batch_decode_p_frames rate {rate}",
@@ -278,7 +267,7 @@ class BatchPChannelFramerBank:
                              prefixes.dtype)])
             dec = self._decode(
                 self._tensor(soft), self._tensor(prefixes), rate=self.rate,
-                use_pallas=self.use_pallas, pre_deinterleaved=True)
+                pre_deinterleaved=True)
             info_bits = dec["info_bits"].cpu().numpy()
             su_ok = dec["su_ok"].cpu().numpy()
             if TRACER.on:

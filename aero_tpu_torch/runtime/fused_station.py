@@ -17,14 +17,14 @@ device,
          telemetry (lock/mse/EbN0/freq/slip) viewed as bytes
 
 and only that buffer leaves the device; its layout is byte-compatible with
-the JAX station's.  Host work is the same code as in JAX: P-channel
-framers (batched decode on the station's device with ``--batch-framing``),
-C-channel framers (voice + signalling) for 8400 (with ``--batch-framing``
-a drain's C frames decode in one batched call on the station's device,
-``protocol/batch_c_framing.py``), and for burst VFOs the
-burst window demodulators and R/T framers, whose window functions,
-detection statistics and checkpoint Viterbi decodes run on the station's
-device.
+the JAX station's.  On the host, every continuous group drains through
+one framer bank, called once per drained block with the group's rows: a
+P bank per 600/1200/10500 group (``protocol/batch_framing.py``) and a C
+bank, voice and signalling, per 8400 group
+(``protocol/batch_c_framing.py``), each decoding the drain's frames in
+one batched call on the station's device; for burst VFOs the burst
+window demodulators and R/T framers, whose window functions, detection
+statistics and checkpoint Viterbi decodes run on the station's device.
 
 Where JAX jits the step (``_get_step``), the port runs it on a card as
 one CUDA-graph replay per block (``utils/graphs.py``): each shard's step
@@ -89,9 +89,8 @@ from aero_tpu_torch.ops.viterbi_kernel import stream_decoder
 from aero_tpu_torch.parallel.mesh import (Mesh, gather, gather_tree,
                                           replicate, shard_over_vfo)
 from aero_tpu_torch.protocol.batch_c_framing import BatchCChannelFramerBank
-from aero_tpu_torch.protocol.batch_framing import TracedPChannelFramer
-from aero_tpu_torch.protocol.c_framing import CChannelFramer
-from aero_tpu_torch.protocol.framing import PChannelFramer, apply_slip
+from aero_tpu_torch.protocol.batch_framing import BatchPChannelFramerBank
+from aero_tpu_torch.protocol.framing import apply_slip
 from aero_tpu_torch.protocol.rt_framing import RTChannelFramer
 from aero_tpu_torch.protocol.su_dispatch import PChannelSUDispatcher
 from aero_tpu_torch.utils.graphs import GraphedStep
@@ -155,23 +154,11 @@ def _traced_account(stats, data_rate, evs, dispatcher=None) -> None:
             account_framer_events(stats, data_rate, evs, dispatcher)
 
 
-def _traced_c_feed(feed):
-    """A C-channel framer's ``feed`` as a ``framers.c`` span (its UW
-    search and frame cuts; the sequential framer's Viterbi decodes, or a
-    C bank's flush on its group's last framer, whose batched decode is a
-    ``framers.c.decode`` span; the voice sinks), its frames counted in
-    ``c.frames``."""
-    def call(soft_bytes, slip=0):
-        with TRACER.span("framers.c"):
-            evs = feed(soft_bytes, slip=slip)
-        if evs:
-            TRACER.count("c.frames", len(evs))
-        return evs
-    return call
-
-
 class FusedStation:
-    """One device step per block over a uniform sub-VFO bank."""
+    """One device step per block over a uniform sub-VFO bank.
+
+    ``batch_host_framing`` must be True, the default: the framer banks
+    are the station's one framing path."""
 
     def __init__(self, cfg: ChannelizerConfig, on_acars=None, on_voice=None,
                  station_id: str = "AERO-TPU", ingest_dtype: str = "int16",
@@ -179,9 +166,13 @@ class FusedStation:
                  pipeline_depth: int = 2, blocks_per_step: int = 1,
                  base_block: int = 16000, hunt: bool = True,
                  hunt_max_tries: int = 6, aircraft_db=None,
-                 batch_host_framing: bool = False, pfb_oversample: int = 2,
+                 batch_host_framing: bool = True, pfb_oversample: int = 2,
                  device="cuda"):
         assert not cfg.mains, "FusedStation serves sub-VFO banks only"
+        if not batch_host_framing:
+            raise ValueError(
+                "batch_host_framing=False: the fused station has one "
+                "framing path, a framer bank per continuous group")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.fs = cfg.sample_rate
@@ -235,8 +226,8 @@ class FusedStation:
         self.burst_demods = {}
         self.rt_framers = {}
         self.burst_stats = {}
-        self._batch_banks = {}
-        self._c_banks = {}
+        self._batch_banks = {}      # P banks, by group
+        self._c_banks = {}          # C banks, by group
         for key, idxs in self.groups.items():
             out_rate, rate, burst = key
             K = self._K[out_rate]
@@ -291,44 +282,21 @@ class FusedStation:
                 lo, hi, bw = 0.0, 25000.0, 10500.0    # C band
             hi = min(hi, out_rate / 2.0 - rate / 2.0)
             self._hunt_cfg[key] = (lo, hi, bw, dcfg.freq_center)
+            # one bank per group, one batched decode per drain on the
+            # station's device: C channels (voice + signalling) or P
             group_topics = self.topics[key]
             if rate == 8400:
-                # C channels: voice + signalling framers.  With batched
-                # framing the group's frames decode in one call per drain
-                # on the station's device, which the group's last
-                # framer's feed makes (a C bank, never in
-                # ``_batch_banks``: those are P banks)
-                sinks = {t: self._mk_voice_sink(t) for t in group_topics}
-                if batch_host_framing:
-                    bank = self._c_banks[key] = BatchCChannelFramerBank(
-                        group_topics, on_voice=sinks, device=self.device)
-                    framers = bank.framers
-                else:
-                    framers = {t: CChannelFramer(on_voice=sinks[t])
-                               for t in group_topics}
-                for t, f in framers.items():
-                    self.framers[t] = f
-                    if TRACER.on:
-                        f.feed = _traced_c_feed(f.feed)
-                continue
-            if batch_host_framing:
-                # one batched decode per drain for all pending frames of
-                # the group, on the station's device
-                from aero_tpu_torch.protocol.batch_framing import (
-                    BatchPChannelFramerBank)
-                bank = BatchPChannelFramerBank(rate, group_topics,
-                                               device=self.device)
-                self._batch_banks[key] = bank
+                bank = self._c_banks[key] = BatchCChannelFramerBank(
+                    group_topics, device=self.device,
+                    on_voice={t: self._mk_voice_sink(t)
+                              for t in group_topics})
+            else:
+                bank = self._batch_banks[key] = BatchPChannelFramerBank(
+                    rate, group_topics, device=self.device)
                 for t in group_topics:
-                    self.framers[t] = bank.framers[t]
                     self.dispatchers[t] = PChannelSUDispatcher(
                         on_acars=self._mk_sink(t), db=self._db)
-                continue
-            framer = TracedPChannelFramer if TRACER.on else PChannelFramer
-            for t in group_topics:
-                self.framers[t] = framer(rate)
-                self.dispatchers[t] = PChannelSUDispatcher(
-                    on_acars=self._mk_sink(t), db=self._db)
+            self.framers.update(bank.framers)
 
         self._gain = gain
         # output packing: soft bits of every group, then float32 telemetry
@@ -810,24 +778,16 @@ class FusedStation:
                 # a frame (tests/test_impairments.py)
                 t0 = self._tel_ofs[key]
                 slips = self.telemetry[t0 + 4 * nb: t0 + 5 * nb]
-                if key in self._batch_banks:
-                    # one batched device decode for the whole group's
-                    # pending frames (the bank API takes plain arrays, so
-                    # slips are realigned here rather than in feed())
-                    evs_by_topic = self._batch_banks[key].feed(
-                        {topic: apply_slip(sb[r], int(slips[r]))
-                         for r, topic in enumerate(self.topics[key])})
-                    for topic, evs in evs_by_topic.items():
-                        self._account_framer_events(
-                            self.stats, rate, evs,
-                            self.dispatchers.get(topic))
-                    continue
-                for r, topic in enumerate(self.topics[key]):
+                banks = self._c_banks if rate == 8400 else self._batch_banks
+                # one batched device decode for the whole group's pending
+                # frames (the bank API takes plain arrays, so slips are
+                # realigned here rather than in feed())
+                evs_by_topic = banks[key].feed(
+                    {topic: apply_slip(sb[r], int(slips[r]))
+                     for r, topic in enumerate(self.topics[key])})
+                for topic, evs in evs_by_topic.items():
                     self._account_framer_events(
-                        self.stats, rate,
-                        self.framers[topic].feed(sb[r].astype(np.float32),
-                                                 slip=int(slips[r])),
-                        self.dispatchers.get(topic))
+                        self.stats, rate, evs, self.dispatchers.get(topic))
 
     # ---- spans, for a station built while the tracer is on
     # (utils/profiling.py): the block fed or drained, and the calls ----

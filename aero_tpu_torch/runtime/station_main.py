@@ -16,11 +16,13 @@ each stage's self ms per drained block and each counter's change since
 the last line.  ``--pfb-oversample 4`` builds the fused station on the
 4x filterbank plan (``FusedStation(pfb_oversample=4)``), which holds a
 VFO anywhere in its bin; 2, the default, is JAX's plan.  The JAX-only
-``--platform`` / ``--compile-cache`` are absent.
+``--platform`` / ``--compile-cache`` are absent, and so is
+``--batch-framing``: the fused station always decodes a continuous
+group's frames in one batched call per drain.
 
 Usage:
   python -m aero_tpu_torch.runtime.station_main -c settings.ini \
-      --iq-file wide.cf32 --batch-framing --device cuda
+      --iq-file wide.cf32 --device cuda
   python -m aero_tpu_torch.runtime.station_main -c settings.ini \
       --iq-file wide.cf32 --backend tree --checkpoint st.ckpt
 """
@@ -74,11 +76,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--voice-out", default=None, metavar="FILE",
                    help="append C-channel voice codec frames (300 B per "
                         "frame, as decoded) to this file")
-    p.add_argument("--batch-framing", action="store_true",
-                   help="fused backend: decode all P-channel frames of a "
-                        "rate group, and all C-channel frames, in ONE "
-                        "batched call per drain (the CUDA Viterbi kernel "
-                        "on the card)")
     p.add_argument("--checkpoint", default=None, metavar="FILE",
                    help="resume from FILE at startup when it exists, and "
                         "save the full station state there periodically "
@@ -157,7 +154,6 @@ def main(argv=None, on_station=None) -> int:
                                 ingest_dtype=args.ingest_dtype,
                                 aircraft_db=args.aircraft_db,
                                 hunt=not args.no_hunt,
-                                batch_host_framing=args.batch_framing,
                                 pfb_oversample=args.pfb_oversample,
                                 device=device)
         from aero_tpu_torch.runtime.station import Station

@@ -25,8 +25,8 @@ and banks' device steps run as CUDA-graph replays, the port's default):
    larger of its operations at the card's fp32 rate and its bytes at the
    memory rate), the share of the bound and the time per trellis step.
 3. The L-band path: ``aero_tpu_torch.runtime.station_main.main``
-   in-process with ``--backend fused --batch-framing --device cuda
-   --ingest-dtype int4`` on the 50-VFO MSK-1200 bank (1.536 MS/s at
+   in-process with ``--backend fused --device cuda --ingest-dtype
+   int4`` on the 50-VFO MSK-1200 bank (1.536 MS/s at
    1545 MHz, VFOs every 19 kHz, 1,024,000-sample blocks) plus the two
    burst MSK-1200 R-channel watchers of configs/aor_w_54_lband.ini in free
    raster slots, over 14 blocks of wideband IQ that carry distinct ACARS
@@ -506,7 +506,7 @@ def phase_main_path(card: str, workdir: str) -> dict:
     box, heard = {}, []
     su = {f"V{v}": [0, 0] for v in CONTENT}
     argv = ["-c", ini, "--iq-file", iq, "--backend", "fused",
-            "--batch-framing", "--device", "cuda", "--ingest-dtype", "int4",
+            "--device", "cuda", "--ingest-dtype", "int4",
             "--format", "jsondump", "-s", "CHIP-SMOKE",
             "--stats-every", "1e9"]
     records, launches = run_station_main(argv, box, heard, su)
@@ -608,7 +608,7 @@ def phase_cband(card: str, workdir: str) -> dict:
     box, heard = {}, []
     su = {t: [0, 0] for t in p_topics}
     argv = ["-c", ini, "--iq-file", iq, "--backend", "fused",
-            "--batch-framing", "--device", "cuda", "--ingest-dtype", "int4",
+            "--device", "cuda", "--ingest-dtype", "int4",
             "--voice-out", voice, "--format", "jsondump", "-s", "CHIP-SMOKE",
             "--stats-every", "1e9"]
     records, launches = run_station_main(argv, box, heard, su)
@@ -1008,7 +1008,7 @@ def phase_checkpoints(card: str, workdir: str, lband: dict,
     from the file: the ACARS of both runs, in order, equal the
     uninterrupted run's."""
     fused_argv = ["-c", lband["ini"], "--backend", "fused",
-                  "--batch-framing", "--device", "cuda",
+                  "--device", "cuda",
                   "--ingest-dtype", "int4", "--format", "jsondump",
                   "-s", "CHIP-SMOKE", "--stats-every", "1e9"]
     a, b = _split_file(lband["iq"], lband["block_len"], FUSED_SPLIT,
@@ -1145,7 +1145,7 @@ def phase_sharded_fused(card: str, lband: dict) -> dict:
     box, heard = {}, []
     su = {f"V{v}": [0, 0] for v in CONTENT}
     argv = ["-c", lband["ini"], "--iq-file", lband["iq"], "--backend",
-            "fused", "--batch-framing", "--device", "cuda",
+            "fused", "--device", "cuda",
             "--ingest-dtype", "int4", "--format", "jsondump",
             "-s", "CHIP-SMOKE", "--stats-every", "1e9"]
     _, launches = run_station_main(argv, box, heard, su,
@@ -1197,8 +1197,7 @@ def phase_sharded_checkpoint(card: str, workdir: str, sharded: dict) -> None:
     st.save_checkpoint(path)
 
     def loaded():
-        s = FusedStation(st.cfg, ingest_dtype="int4",
-                         batch_host_framing=True, device="cuda")
+        s = FusedStation(st.cfg, ingest_dtype="int4", device="cuda")
         s.load_checkpoint(path)
         return s
     plain = loaded()
@@ -1755,7 +1754,7 @@ def phase_graphs(card: str, workdir: str, lband: dict, cband: dict,
     CUDA events, the profiler's device operations, graph launches and
     device time, the idle share) and the captures; the filterbank
     station's channelizer and the decoder's block."""
-    fused = ["--backend", "fused", "--batch-framing", "--device", "cuda",
+    fused = ["--backend", "fused", "--device", "cuda",
              "--ingest-dtype", "int4", "--format", "jsondump", "-s",
              "CHIP-SMOKE", "--stats-every", "1e9"]
     l_argv = ["-c", lband["ini"], "--iq-file", lband["iq"]] + fused

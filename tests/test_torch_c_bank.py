@@ -2,10 +2,11 @@
 sequential ``CChannelFramer`` it defers.
 
 Several VFOs' noisy C streams (``tests/torch_c_streams.py``) go, drain by
-drain and in topic order, to sequential framers and to a bank's framers.
+drain, to sequential framers in topic order and to a bank's ``feed``.
 After every drain both give equal ``CFrameEvent``s (frame index,
-signalling, voice, UW errors), the same ``on_voice(data, hex)`` and
-call-progress calls in the same order, and the same framer state:
+signalling, voice, UW errors), per topic and in cut order, the same
+``on_voice(data, hex)`` and call-progress calls in the same order, and
+the same framer state:
 trellis history (``viterbi._carry``), buffer, lock, frame index, arm
 flips and hex.  The cases: noise alone; an inverted arm; a call-progress
 hex that changes mid-stream; a dropout that loses the lock and finds it
@@ -28,7 +29,7 @@ from aero_tpu_torch.protocol.batch_c_framing import (ROW,
 from aero_tpu_torch.protocol.c_framing import CChannelFramer
 from aero_tpu_torch.protocol.interleaver import (deinterleave_indices,
                                                  depuncture_soft)
-from torch_c_streams import FRAME, c_frames, c_stream, feed_round
+from torch_c_streams import FRAME, c_frames, c_stream, feed_bank, feed_round
 
 TOPICS = ("C00", "C01", "C02")
 HEXES = (b"\x12\x34\x56", b"\xab\xcd\xef")
@@ -84,9 +85,9 @@ def _run_both(streams, block, slips, twin_patch=None):
         want = feed_round(seq, streams, pos, block, slip)
         if twin_patch is not None:
             with twin_patch():
-                got = feed_round(bank.framers, streams, pos, block, slip)
+                got = feed_bank(bank, streams, pos, block, slip)
         else:
-            got = feed_round(bank.framers, streams, pos, block, slip)
+            got = feed_bank(bank, streams, pos, block, slip)
         assert got == want, f"drain {r}"
         assert bank_calls == seq_calls, f"drain {r}"
         for t in streams:
@@ -143,6 +144,27 @@ def _falls(v) -> bool:
     return any(b < a for a, b in zip(v, v[1:]))
 
 
+def test_the_bank_feed_gives_each_topics_events_in_cut_order():
+    """``feed(rows)`` returns {topic: events}: every topic of the bank, in
+    the bank's order, each with the sequential framer's events of the same
+    row in the order it cut them (two frames of a VFO, and a lock lost and
+    found again, inside one drain)."""
+    kws, block, _ = CASES["relock_in_one_drain"]
+    streams = {t: c_stream(40 + i, 7, **kw)
+               for i, (t, kw) in enumerate(zip(TOPICS, kws))}
+    seq = {t: CChannelFramer() for t in streams}
+    bank = BatchCChannelFramerBank(list(streams))
+    n = max(len(v) for v in streams.values())
+    several = 0
+    for pos in range(0, n + block, block):
+        rows = {t: v[pos:pos + block] for t, v in streams.items()}
+        got = bank.feed(rows)
+        assert list(got) == list(TOPICS)
+        assert got == {t: seq[t].feed(rows[t]) for t in TOPICS}, pos
+        several += sum(len(evs) >= 2 for evs in got.values())
+    assert several >= 2
+
+
 def test_the_bank_on_the_kernels_twin(monkeypatch):
     """One VFO, three frames, decoded by the plain-torch twin of the CUDA
     kernel (the native decoder switched off for the bank alone)."""
@@ -177,10 +199,10 @@ def cband_capture():
     return load_ini(cband_ini(FS, layout), is_text=True), wide
 
 
-def _station(cfg, batch, out):
+def _station(cfg, out):
     from aero_tpu_torch.runtime.fused_station import FusedStation
     return FusedStation(cfg, ingest_dtype="int4", pfb_oversample=4,
-                        batch_host_framing=batch, device="cpu",
+                        device="cpu",
                         on_voice=lambda v, d, h: out.append((v, d, h)))
 
 
@@ -201,37 +223,58 @@ def _stats(st):
 
 def test_the_station_with_a_c_bank_resumes_from_a_checkpoint(
         cband_capture, tmp_path):
-    """The fused station with batched framing builds a C bank for the
-    8400 group (never a P bank) and gives the sequential framers' voice;
-    saved mid-stream and restored into a new station, it gives the same
-    voice and counts as an unbroken run."""
+    """The fused station builds a C bank for the 8400 group (beside a P
+    bank for the P group) and gives the voice and events of sequential
+    ``CChannelFramer``s fed the same drained soft rows; saved mid-stream
+    and restored into a new station, it gives the same voice and counts
+    as an unbroken run."""
     from aero_tpu_torch.protocol.batch_c_framing import (
         DeferredCChannelFramer)
     cfg, wide = cband_capture
     blocks = [wide[b * 96000:(b + 1) * 96000] for b in range(BLOCKS)]
-    runs = {}
-    for batch in (False, True):
-        out = []
-        st = _station(cfg, batch, out)
-        _feed(st, blocks)
-        st.flush()
-        runs[batch] = (out, _stats(st))
-    assert runs[True] == runs[False]
-    out, stats = runs[True]
+    out, drained = [], []
+    st = _station(cfg, out)
+    assert all(isinstance(st.framers[t], DeferredCChannelFramer)
+               for t in ("C01", "C02"))
+    assert len(st._c_banks) == 1 and len(st._batch_banks) == 1
+    bank, = st._c_banks.values()
+
+    def spy(rows, _feed=bank.feed):
+        evs = _feed(rows)
+        drained.append((rows, evs))
+        return evs
+    bank.feed = spy
+    _feed(st, blocks)
+    st.flush()
+    stats = _stats(st)
+    assert len(drained) == BLOCKS
+    seq_out = []
+    seq = {t: CChannelFramer(on_voice=lambda d, h, t=t: seq_out.append(
+        (t, d, h))) for t in bank.framers}
+    for rows, evs in drained:
+        assert evs == {t: seq[t].feed(row) for t, row in rows.items()}
+    assert out == seq_out
     assert len(out) >= 8 and {v for v, _, _ in out} == {"C01", "C02"}
     assert {h for _, _, h in out} >= {"123456", "ABCDEF"}
 
     got = []
-    a = _station(cfg, True, got)
-    assert all(isinstance(a.framers[t], DeferredCChannelFramer)
-               for t in ("C01", "C02"))
-    assert len(a._c_banks) == 1 and len(a._batch_banks) == 1
+    a = _station(cfg, got)
     _feed(a, blocks[:6])
     path = str(tmp_path / "c_bank.ckpt")
     a.save_checkpoint(path)
     assert 0 < len(got) < len(out)
-    b = _station(cfg, True, got)
+    b = _station(cfg, got)
     b.load_checkpoint(path)
     _feed(b, blocks[6:])
     b.flush()
     assert got == out and _stats(b) == stats
+
+
+def test_the_station_has_one_framing_path(cband_capture):
+    """``batch_host_framing=False`` (the sequential framers the station
+    no longer builds) raises, naming the one path."""
+    cfg, _ = cband_capture
+    from aero_tpu_torch.runtime.fused_station import FusedStation
+    with pytest.raises(ValueError, match="one framing path"):
+        FusedStation(cfg, pfb_oversample=4, batch_host_framing=False,
+                     device="cpu")

@@ -13,8 +13,8 @@ CUDA device is present.  On the card, from the repository root (the
   ragged ones and the largest T the wrapper takes), counts one launch per
   call, and rejects what it does not take (float32 soft, a bad shape, a
   T beyond one block's shared memory);
-- the fused station with batch framing decodes the same ACARS on the card
-  as on the CPU, through the kernel;
+- the fused station decodes the same ACARS on the card as on the CPU,
+  through the kernel;
 - one step of a small C-band station (OQPSK 10500 P, 8400 C and a burst
   10500 T watcher) on the card against the same step on the CPU, from the
   same state, within the limits of ``check_packed``;
@@ -22,8 +22,8 @@ CUDA device is present.  On the card, from the repository root (the
   ACARS on the card as on the CPU, and ``decode_main`` on a burst capture
   prints the same records on both, its R/T decodes through the kernel;
 - sharded over a mesh of two shards (two cards, or two shards of
-  ``cuda:0`` on a one-card machine), the fused station with batch framing
-  and the classic station decode the same ACARS on the card as the same
+  ``cuda:0`` on a one-card machine), the fused station and the classic
+  station decode the same ACARS on the card as the same
   station unsharded there, the fused one through the kernel, and a
   sharded fused step agrees with the unsharded one within the limits of
   ``check_packed``;
@@ -269,7 +269,7 @@ def test_station_on_card_matches_cpu(cuda):
     for dev in ("cpu", "cuda"):
         got = []
         st = FusedStation(load_ini(INI, is_text=True), ingest_dtype="int4",
-                          batch_host_framing=True, device=dev,
+                          device=dev,
                           on_acars=lambda v, it: got.append((v, it.message)))
         w = np.concatenate([wb, np.zeros(2 * st.block_len, np.complex64)])
         vk.reset_launches()
@@ -473,8 +473,7 @@ def test_sharded_fused_station_on_card_matches_unsharded(cuda):
     results, stations = {}, {}
     for name in ("unsharded", "sharded"):
         got = []
-        st = FusedStation(cfg, ingest_dtype="int4", batch_host_framing=True,
-                          device=cuda,
+        st = FusedStation(cfg, ingest_dtype="int4", device=cuda,
                           on_acars=lambda v, it: got.append((v, it.message)))
         if name == "sharded":
             st.shard(_card_mesh())
@@ -566,7 +565,7 @@ def test_graphed_fused_station_equals_eager(cuda):
 
     def run():
         st = FusedStation(load_ini(INI, is_text=True), ingest_dtype="int4",
-                          batch_host_framing=True, blocks_per_step=4,
+                          blocks_per_step=4,
                           pipeline_depth=2, device=cuda)
         L = st.block_len
         w = np.concatenate([wb, np.zeros(2 * L, np.complex64)])
@@ -672,7 +671,7 @@ def test_graphed_batch_decode_equals_eager_and_counts_launches(cuda):
     batches = [(rng.integers(0, 256, (n, n_soft)).astype(np.float32),
                 rng.integers(0, 256, (n, 62)).astype(np.float32))
                for n in (4, 8, 4, 8, 1)]
-    kw = dict(rate=1200, use_pallas=False, pre_deinterleaved=True)
+    kw = dict(rate=1200, pre_deinterleaved=True)
 
     def run(device=cuda):
         bank = BatchPChannelFramerBank(1200, [], device=device)
@@ -701,7 +700,7 @@ def test_c_bank_on_card_equals_the_host_framers(cuda):
     from aero_tpu_torch.protocol.batch_c_framing import (
         BatchCChannelFramerBank)
     from aero_tpu_torch.protocol.c_framing import CChannelFramer
-    from torch_c_streams import FRAME, c_stream, feed_round
+    from torch_c_streams import FRAME, c_stream, feed_bank, feed_round
     hexes = (b"\x12\x34\x56", b"\xab\xcd\xef")
     kws = [{}, {"invert_arm": 1}, {"hexes": hexes}, {"sigma": 0.6},
            {"dropout": (3 * FRAME + 700, 5000)}, {"invert_arm": 0}, {},
@@ -721,7 +720,7 @@ def test_c_bank_on_card_equals_the_host_framers(cuda):
     while pos < n:
         block = 9000 if r % 5 == 4 else 2800
         want = feed_round(seq, streams, pos, block)
-        got = feed_round(bank.framers, streams, pos, block)
+        got = feed_bank(bank, streams, pos, block)
         assert got == want, f"drain {r}"
         assert calls["card"] == calls["seq"], f"drain {r}"
         for t in streams:

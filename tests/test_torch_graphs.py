@@ -205,7 +205,7 @@ def _functional(st, blocks):
 
 def _station(**kw):
     return FusedStation(load_ini(INI, is_text=True), ingest_dtype="int4",
-                        batch_host_framing=True, device="cpu", **kw)
+                        device="cpu", **kw)
 
 
 @pytest.mark.parametrize("bps", [1, 4])
@@ -459,7 +459,7 @@ def test_batch_decode_step_equals_plain_and_jax(p_frames, n):
     def pad(a):
         return np.concatenate([a, np.full((n_pad - n,) + a.shape[1:], 128.0,
                                           np.float32)])
-    kw = dict(rate=1200, use_pallas=False, pre_deinterleaved=True)
+    kw = dict(rate=1200, pre_deinterleaved=True)
     bank = BatchPChannelFramerBank(1200, [], device="cpu")
     got = bank._decode(bank._tensor(pad(payloads)),
                        bank._tensor(pad(prefixes)), **kw)

@@ -10,7 +10,7 @@
    the ``aero_tpu`` -> ``aero_tpu_torch`` import rewrite, the native C++
    sources are byte-for-byte copies, the port's native libraries give the
    reference's outputs, and the copied functions, methods and modules
-   (station accounting, the fused station's ``quantize`` / ``_drain`` /
+   (station accounting, the fused station's ``quantize`` /
    ``vfo_telemetry`` / ``vfo_spectrum``, the batched framer bank's
    ``feed`` / ``flush``, the R/T framer module, the classic station's
    ``process``, the checkpoint's host-state helpers, the single-VFO
@@ -19,7 +19,10 @@
    later fix to ``aero_tpu`` fails here until the port takes it too.
    The burst wrapper's ``process`` runs its detection on the device and
    is no copy: tests/test_torch_burst.py holds it to the host loop it
-   replaced, block by block.
+   replaced, block by block.  The fused station's ``_drain`` feeds every
+   continuous group through its framer bank, C groups too, where JAX's
+   frames C channels one framer at a time: the last test holds it to
+   JAX's ``_drain``, both of its framing paths, on the same packed rows.
 """
 
 import ast
@@ -225,6 +228,9 @@ def _tree(obj, subs=()):
 
 _FLUSH_SUBS = (
     ("batch_decode_p_frames(", "self._decode("),
+    # the tensor's device picks the decoder: no ``use_pallas``
+    ("use_pallas=self.use_pallas, pre_deinterleaved=True",
+     "pre_deinterleaved=True"),
     ("jnp.asarray(soft), jnp.asarray(prefixes)",
      "self._tensor(soft), self._tensor(prefixes)"),
     ('np.asarray(dec["info_bits"])', 'dec["info_bits"].cpu().numpy()'),
@@ -248,17 +254,6 @@ _FLUSH_SUBS = (
      "            TRACER.close()\n"
      "        if not rewound:\n"),
 )
-
-# the fused station accounts a group's framer events through its own
-# attribute: the plain function, or with the tracer on its
-# ``framers.dispatch`` span
-_DRAIN_SUBS = (
-    ("np.asarray(packed)", "packed.cpu().numpy()"),
-    ("account_framer_events(self.stats, rate, evs,",
-     "self._account_framer_events(self.stats, rate, evs,"),
-    ("account_framer_events(\n", "self._account_framer_events(\n"),
-)
-
 
 # the R/T framer takes its checkpoint decoder as an argument: the import,
 # the constructor argument and its default, and the call at the decode
@@ -352,8 +347,6 @@ def _pairs():
         "account_framer_events": (js.account_framer_events,
                                   ts.account_framer_events, ()),
         "quantize": (jf.FusedStation.quantize, tf.FusedStation.quantize, ()),
-        "_drain": (jf.FusedStation._drain, tf.FusedStation._drain,
-                   _DRAIN_SUBS),
         "vfo_telemetry": (jf.FusedStation.vfo_telemetry,
                           tf.FusedStation.vfo_telemetry, ()),
         "bank.feed": (jb.BatchPChannelFramerBank.feed,
@@ -369,7 +362,7 @@ def _pairs():
 
 @pytest.mark.parametrize("name", [
     "StationStats", "new_burst_stats", "account_burst_outputs",
-    "account_framer_events", "quantize", "_drain", "vfo_telemetry",
+    "account_framer_events", "quantize", "vfo_telemetry",
     "bank.feed", "bank.flush", "vfo_spectrum", "rt_framing",
     "Station.process", "checkpoint.save_classic_checkpoint",
     "parity_check.parity"]
@@ -379,3 +372,108 @@ def test_copied_code_matches_original(name):
     orig, port, subs = _pairs()[name]
     assert _tree(port) == _tree(orig, subs), (
         f"{name}: the port's copy drifted from aero_tpu — take the change")
+
+
+# ---- the fused station's drain, held to JAX's by behaviour ----
+
+@pytest.fixture(scope="module")
+def drained():
+    """A C-band bank on the 4x plan (two P, two C and a T watcher at 288
+    kS/s: ACARS on a P channel, voice with a call-progress hex on both C
+    channels, a T burst) through the port's station on the CPU: the
+    packed rows each drain took, and what the drain gave."""
+    from aero_tpu_torch.channelizer import load_ini
+    from aero_tpu_torch.protocol.crc import append_crc16_bytes as crc
+    from aero_tpu_torch.runtime.fused_station import FusedStation
+    from test_torch_cuda import cband_ini, cband_layout, cband_wideband
+    fs, L, blocks = 288000, 96000, 14
+    layout = cband_layout(2, 2, 1, 48000)
+    rng = np.random.default_rng(11)
+    cframes = [([crc(bytes([0x30, 0x12, 0x34, 0x56])
+                     + bytes(rng.integers(0, 256, 6).tolist()))]
+                + [crc(bytes(rng.integers(0, 256, 10).tolist()))
+                   for _ in range(2)],
+                bytes(rng.integers(0, 256, 300).tolist())) for _ in range(5)]
+    wide = cband_wideband(fs, layout, {"P00": ("P", ["DRAIN P"]),
+                                       "C02": ("C", cframes),
+                                       "C03": ("C", cframes[::-1]),
+                                       "T04": ("T", "DRAIN T", 1.5)},
+                          blocks * L, seed=3)
+    ini = cband_ini(fs, layout)
+    rows, out = [], _Outputs()
+    st = FusedStation(load_ini(ini, is_text=True), ingest_dtype="int4",
+                      pfb_oversample=4, device="cpu", on_acars=out.acars,
+                      on_voice=out.voice)
+    drain, account = st._drain, st._account_framer_events
+
+    def recorded(packed):
+        rows.append(packed.cpu().numpy().copy())
+        drain(packed)
+    st._drain = recorded
+    st._account_framer_events = out.accounting(account)
+    for b in range(blocks):
+        st.process(wide[b * L:(b + 1) * L])
+    st.flush()
+    return ini, rows, out.result(st)
+
+
+class _Outputs:
+    """A station's ACARS, voice and framer events, in the order its drain
+    gave them."""
+
+    def __init__(self):
+        self.items, self.voices, self.events = [], [], []
+
+    def acars(self, topic, item):
+        self.items.append((topic, item.message))
+
+    def voice(self, topic, data, hex_aes):
+        self.voices.append((topic, bytes(data), hex_aes))
+
+    def accounting(self, account):
+        def call(stats, rate, evs, dispatcher=None):
+            self.events.append((rate, [_event(e) for e in evs]))
+            account(stats, rate, evs, dispatcher)
+        return call
+
+    def result(self, st):
+        s = st.stats
+        bursts = {t: (b["windows"], b["packets"])
+                  for t, b in st.burst_stats.items()}
+        return {"acars": self.items, "voice": self.voices,
+                "events": self.events, "bursts": bursts,
+                "stats": (s.frames, s.su_ok, s.su_bad, s.acars,
+                          s.voice_frames, s.burst_windows,
+                          s.burst_packets)}
+
+
+def _event(ev):
+    return {k: [bool(x) for x in v] if k == "su_crc_ok" else v
+            for k, v in vars(ev).items()}
+
+
+@pytest.mark.parametrize("batch", [False, True])
+def test_drain_gives_the_reference_drains_outputs(drained, reference_natives,
+                                                  monkeypatch, batch):
+    """The same packed rows through JAX's ``_drain``, its station built
+    with batch framing off and on (its C channels framed one framer at a
+    time either way): the same framer events per group and topic, ACARS,
+    voice frames, burst counts and stats as the port's drain."""
+    from aero_tpu.channelizer import load_ini
+    from aero_tpu.runtime import fused_station as jf
+    ini, rows, want = drained
+    out = _Outputs()
+    monkeypatch.setattr(jf, "account_framer_events",
+                        out.accounting(jf.account_framer_events))
+    st = jf.FusedStation(load_ini(ini, is_text=True), ingest_dtype="int4",
+                         batch_host_framing=batch, on_acars=out.acars,
+                         on_voice=out.voice)
+    for packed in rows:
+        st._drain(packed)
+    got = out.result(st)
+    assert got == want
+    assert {t for t, _, _ in got["voice"]} == {"C02", "C03"}
+    assert sum(len(evs) for rate, evs in got["events"] if rate == 8400) >= 8
+    assert any(t == "P00" for t, _ in got["acars"])
+    assert "123456" in {h for _, _, h in got["voice"]}
+    assert got["bursts"]["T04"][1] >= 1

@@ -247,7 +247,7 @@ def _run(capture, plan):
     msgs, voice = {}, {}
     st = FusedStation(
         load_ini(cband_ini(FS, layout), is_text=True), ingest_dtype="int4",
-        batch_host_framing=True, pfb_oversample=plan, device="cpu",
+        pfb_oversample=plan, device="cpu",
         on_acars=lambda v, it: msgs.setdefault(v, set()).add(it.message),
         on_voice=lambda v, d, h: voice.setdefault(v, set()).add(bytes(d)))
     L = st.block_len

@@ -1,10 +1,11 @@
 """Port parity for the slice as a whole: the fused station, free-running.
 
-On the bank of tests/torch_station_bank.py, with int16 and int4 ingest and
-batch framing off and on, the port's ``FusedStation`` (on the CPU, where
-the batched decode is the Viterbi kernel's plain twin) emits the same
-ACARS (topic, message) set and the same frames / su_ok / su_bad counts as
-JAX's ``FusedStation``.  Exact equality: the decoded content, not a float.
+On the bank of tests/torch_station_bank.py, with int16 and int4 ingest,
+the port's ``FusedStation`` (on the CPU, where its framer banks decode on
+the host) emits the same ACARS (topic, message) set and the same frames /
+su_ok / su_bad counts as JAX's ``FusedStation`` with batch framing off and
+on: the port's one framing path is held to both of JAX's.  Exact
+equality: the decoded content, not a float.
 """
 
 import numpy as np
@@ -43,7 +44,7 @@ def test_station_same_acars_as_jax(wideband, ingest, batch):
     want, _ = _run(JaxStation, wideband, ingest_dtype=ingest,
                    batch_host_framing=batch)
     got, st = _run(FusedStation, wideband, ingest_dtype=ingest,
-                   batch_host_framing=batch, device="cpu")
+                   device="cpu")
     assert ("X", "BATCH XX") in got[0] and ("Y", "BATCH YY") in got[0]
     assert got == want
     assert all(t.device.type == "cpu" for t in st._state["pfb"].values())
@@ -53,10 +54,9 @@ def test_multi_block_dispatch_same_result(wideband):
     """blocks_per_step and pipeline_depth change when the host uploads
     and drains, never what is decoded."""
     one, _ = _run(FusedStation, wideband, ingest_dtype="int4",
-                  batch_host_framing=True, device="cpu", pipeline_depth=0)
+                  device="cpu", pipeline_depth=0)
     many, st = _run(FusedStation, wideband, ingest_dtype="int4",
-                    batch_host_framing=True, device="cpu",
-                    blocks_per_step=3, pipeline_depth=1)
+                    device="cpu", blocks_per_step=3, pipeline_depth=1)
     assert many == one and one[0]
     assert not st._inflight and not st._pending
 

@@ -2,9 +2,10 @@
 
 On a cf32 file of the bank of tests/torch_station_bank.py, the port's CLI
 with ``--device cpu`` prints the same jsondump records as JAX's
-``station_main --platform cpu`` (timestamps aside), with batch framing
-off and on.  On a one-VFO 8400 C-channel INI carrying two frames,
-``--voice-out`` writes the same bytes as JAX's.  ``--device cuda`` without
+``station_main --platform cpu`` (timestamps aside), JAX's with batch
+framing off and on (the port has the one path, no flag).  On a one-VFO
+8400 C-channel INI carrying two frames, ``--voice-out`` writes the same
+bytes as JAX's.  ``--device cuda`` without
 a usable card raises instead of falling back to the CPU.
 """
 
@@ -48,8 +49,8 @@ def test_cli_same_jsondump_as_jax(capture, capsys, batch):
     ini, iq = capture
     common = ["-c", ini, "--iq-file", iq, "--format", "jsondump",
               "-s", "TEST", "--stats-every", "1e9"]
-    common += ["--batch-framing"] if batch else []
-    assert jax_main.main(common + ["--platform", "cpu"]) == 0
+    jax_flags = ["--platform", "cpu"] + (["--batch-framing"] if batch else [])
+    assert jax_main.main(common + jax_flags) == 0
     want = _records(capsys.readouterr().out)
     seen = []
     assert torch_main.main(common + ["--device", "cpu"],
@@ -109,9 +110,11 @@ def test_cli_voice_out_same_bytes_as_jax(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--compile-cache", "cache"],
-                                  ["--platform", "cpu"]])
+                                  ["--platform", "cpu"],
+                                  ["--batch-framing"]])
 def test_cli_refuses_unported_flags(capture, flag):
-    """The JAX-only flags are absent, not silently ignored."""
+    """The JAX-only flags are absent, not silently ignored (the port's
+    fused station always frames through its banks)."""
     ini, iq = capture
     with pytest.raises(SystemExit):
         torch_main.main(["-c", ini, "--iq-file", iq, "--device", "cpu"]

@@ -97,7 +97,7 @@ def tracer():
 
 def _run(wb, spy=None):
     st = FusedStation(load_ini(BANK, is_text=True), ingest_dtype="int4",
-                      batch_host_framing=True, device="cpu")
+                      device="cpu")
     if spy is not None:
         spy(st)
     L = st.block_len
@@ -302,8 +302,8 @@ def cli_files(tmp_path, capture):
     iq = tmp_path / "fill.cf32"
     capture.tofile(iq)
     return ["-c", str(ini), "--iq-file", str(iq), "--device", "cpu",
-            "--batch-framing", "--ingest-dtype", "int4", "--format",
-            "jsondump", "--stats-every", "0"]
+            "--ingest-dtype", "int4", "--format", "jsondump",
+            "--stats-every", "0"]
 
 
 def _stats(err: str) -> list:
@@ -360,8 +360,8 @@ def test_station_main_trace_splits_out_the_c_framers(tmp_path, capsys,
     wide.tofile(iq)
     assert station_main.main(
         ["-c", str(ini), "--iq-file", str(iq), "--device", "cpu",
-         "--batch-framing", "--ingest-dtype", "int4", "--pfb-oversample",
-         "4", "--voice-out", str(voice), "--stats-every", "0",
+         "--ingest-dtype", "int4", "--pfb-oversample", "4",
+         "--voice-out", str(voice), "--stats-every", "0",
          "--trace"]) == 0
     tr = _stats(capsys.readouterr().err)[-1]["trace"]
     assert tr["self_ms"]["framers.c"] > 0
@@ -391,7 +391,7 @@ def test_the_c_bank_decode_is_a_span_inside_the_c_framers(tracer):
     voice = []
     st = FusedStation(load_ini(cband_ini(fs, layout), is_text=True),
                       ingest_dtype="int4", pfb_oversample=4,
-                      batch_host_framing=True, device="cpu",
+                      device="cpu",
                       on_voice=lambda v, d, h: voice.append(v))
     for b in range(12):
         st.process(wide[b * L:(b + 1) * L])

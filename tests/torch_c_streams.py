@@ -6,13 +6,15 @@ A case is several VFOs' soft-byte streams (``build_c_frames`` under
 noise, each after its own stretch of noise, so that the VFOs lock at
 different places) and a feeding plan: the block of soft bits each drain
 hands every framer, and the slips it gives.  ``feed_round`` feeds one
-drain's blocks to a dict of framers in topic order, as the fused
+drain's blocks to a dict of sequential framers in topic order,
+``feed_bank`` the same blocks to a C bank in one ``feed``, as the fused
 station's drain does."""
 
 import numpy as np
 
 from aero_tpu_torch.protocol.c_framing import FRAME_BITS, build_c_frames
 from aero_tpu_torch.protocol.crc import append_crc16_bytes
+from aero_tpu_torch.protocol.framing import apply_slip
 
 FRAME = FRAME_BITS + 104        # soft bits a frame and its UW
 
@@ -69,3 +71,14 @@ def feed_round(framers: dict, streams: dict, pos: int, block: int,
     for t, f in framers.items():
         evs += f.feed(streams[t][pos:pos + block], slip=slip)
     return evs
+
+
+def feed_bank(bank, streams: dict, pos: int, block: int,
+              slip: int = 0) -> list:
+    """``feed_round`` through a C bank's ``feed``: every topic's next
+    ``block`` soft bits from ``pos``, ``slip`` realigned as the fused
+    station's drain realigns it; returns the events, in topic order and
+    each topic's in cut order."""
+    got = bank.feed({t: apply_slip(streams[t][pos:pos + block], slip)
+                     for t in bank.framers})
+    return [e for t in bank.framers for e in got[t]]

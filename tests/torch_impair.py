@@ -426,8 +426,7 @@ def fused_soak(device, workdir, built=None):
 
     def mk(sink):
         return _keep(FusedStation(
-            cfg, ingest_dtype="int16", hunt_max_tries=2,
-            batch_host_framing=True, device=device,
+            cfg, ingest_dtype="int16", hunt_max_tries=2, device=device,
             on_acars=lambda v, it: sink.append((v, it.message))), built)
 
     w = np.concatenate([wb, np.zeros(3 * 96000, np.complex64)])

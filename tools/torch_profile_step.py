@@ -6,8 +6,8 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 tools/torch_profile_step.py [--blocks 12] [--out FILE]
 
-It builds chip_smoke.py's 50-VFO MSK-1200 bank (1.536 MS/s, int4 ingest,
-batch framing on) with no pipelining, so each stage of a block can be
+It builds chip_smoke.py's 50-VFO MSK-1200 bank (1.536 MS/s, int4 ingest)
+with no pipelining, so each stage of a block can be
 timed on its own on the host clock, and feeds it ``--blocks`` blocks of
 the smoke's wideband signal four times, in turns: eager (inside
 ``device.disable_graphs()``), graphed, graphed, eager.  Per pass:
@@ -106,8 +106,7 @@ def main(argv=None) -> int:
     set_fp32_precision()
     TRACER.on = True
     st = FusedStation(load_ini(chip_smoke.bank_ini(), is_text=True),
-                      ingest_dtype="int4", batch_host_framing=True,
-                      pipeline=False, device="cuda")
+                      ingest_dtype="int4", pipeline=False, device="cuda")
     wide = chip_smoke.make_wideband(st.block_len, args.blocks)
     tables = []
     for mode in ("eager", "graphed", "graphed", "eager"):
