@@ -1,8 +1,9 @@
 """ACARS parsing from reassembled ISU userdata.
 
 Behavioral equivalent of ParserISU (ref: decode/aerol.cpp:326-489): per-byte
-odd-parity strip, ACARS pattern gate (FF FF .. STX/ETX), MODE / TAK / LABEL /
-BI / tail-number extraction, <DEL> substitution, fragment defragmentation.
+odd-parity check and strip (256-entry tables through ``bytes.translate``),
+ACARS pattern gate (FF FF .. STX/ETX), MODE / TAK / LABEL / BI /
+tail-number extraction, <DEL> substitution, fragment defragmentation.
 Non-ACARS SUs are reported as upper-case hex with ``nonacars=True``.
 """
 
@@ -13,9 +14,11 @@ from typing import Callable
 from aero_tpu_torch.protocol.isu import ACARSItem, ACARSDefragmenter, ISUItem
 
 
-def _parity_ok(byte: int) -> bool:
-    """The 8th bit makes the byte odd-parity (ref: aerol.cpp:343-356)."""
-    return bin(byte).count("1") % 2 == 1
+# by byte value: 1 where the 8th bit makes the byte odd-parity (ref:
+# aerol.cpp:343-356), so that ``0 in seg.translate(ODD)`` finds a parity
+# error in ``seg``; and the byte with its parity bit stripped
+ODD = bytes(bin(b).count("1") & 1 for b in range(256))
+STRIP = bytes(b & 0x7F for b in range(256))
 
 
 class ParserISU:
@@ -44,9 +47,8 @@ class ParserISU:
         if isuitem.AESID == 0:
             self.on_error("Error: AESID == 0")
             return False
-        ud = isuitem.userdata
-        parities = [_parity_ok(b) for b in ud]
-        textish = bytes(b & 0x7F for b in ud)
+        ud = bytes(isuitem.userdata)
+        textish = ud.translate(STRIP)
 
         isacars = (len(ud) > 16 and ud[0] == 0xFF and ud[1] == 0xFF
                    and (ud[15] == 0x83 or ud[15] == 0x02))
@@ -70,29 +72,24 @@ class ParserISU:
         item.hastext = ud[15] == 0x02
         if ud[len(ud) - 1 - 3] == 0x97:
             item.moretocome = True
-        reg = bytearray()
-        for k in range(4, 4 + 7):
-            if not parities[k]:
-                self.on_error(
-                    f"ISU: AESID = {isuitem.AESID:X} GESID = {isuitem.GESID:X} "
-                    f"QNO = {isuitem.QNO:02X} REFNO = {isuitem.REFNO:02X} : "
-                    f"Parity error")
-                return False
-            reg.append(ud[k] & 0x7F)
-        item.PLANEREG = bytes(reg)
+        if 0 in ud[4:4 + 7].translate(ODD):
+            self.on_error(
+                f"ISU: AESID = {isuitem.AESID:X} GESID = {isuitem.GESID:X} "
+                f"QNO = {isuitem.QNO:02X} REFNO = {isuitem.REFNO:02X} : "
+                f"Parity error")
+            return False
+        item.PLANEREG = textish[4:4 + 7]
 
         if item.hastext:
-            msg = []
-            for k in range(16, len(ud) - 1 - 3):
-                if not parities[k]:
-                    self.on_error(
-                        f"ISU: AESID = {isuitem.AESID:X} GESID = "
-                        f"{isuitem.GESID:X} QNO = {isuitem.QNO:02X} REFNO = "
-                        f"{isuitem.REFNO:02X} : Parity error")
-                    return False
-                byte = ud[k] & 0x7F
-                msg.append("<DEL>" if byte == 0x7F else chr(byte))
-            item.message = "".join(msg)
+            end = len(ud) - 1 - 3
+            if 0 in ud[16:end].translate(ODD):
+                self.on_error(
+                    f"ISU: AESID = {isuitem.AESID:X} GESID = "
+                    f"{isuitem.GESID:X} QNO = {isuitem.QNO:02X} REFNO = "
+                    f"{isuitem.REFNO:02X} : Parity error")
+                return False
+            item.message = textish[16:end].decode("latin-1").replace(
+                "\x7f", "<DEL>")
 
         item.valid = True
         self.on_fragment(item)

@@ -7,6 +7,13 @@ Behavioral equivalent of the SU switch in AeroL::Decode
 MHz, aerol.cpp:1598-1647), satellite-identification broadcast
 (aerol.cpp:1657-1723), P/R-channel control (aerol.cpp:1820-1897) and
 C-channel assignments (rx 1510 / tx 1611.5 MHz bases, aerol.cpp:2053-2097).
+
+The routing (reassembly, parsing, log-on and assignment events) is one
+body, ``_route``; the display line is formatted after it, and only for a
+dispatcher built with ``display=True``, the default.  One built with
+``display=False`` (the fused station's, whose drain reads no line) routes
+the same SUs in the same order and returns ``""`` at once for an SU type
+whose only product is the line (``DISPLAY_ONLY``).
 """
 
 from __future__ import annotations
@@ -55,6 +62,16 @@ P_MESSAGE_NAMES = {
 _P_BITRATES = {0: 600, 1: 1200, 2: 2400, 3: 4800, 4: 6000, 5: 5250,
                6: 10500, 7: 8400, 9: 21000}
 
+_C_ASSIGNMENTS = (0x31, 0x32, 0x33, 0x34)
+# by SU type: 1 where the display line is the only product, so that a
+# dispatcher without display returns at once; 0 for log-on confirm, call
+# announcement, C-channel assignments, the initial ISU and every unnamed
+# 0xC0 type (an SSU)
+DISPLAY_ONLY = bytes(
+    0 if m in (0x11, 0x21, 0x71, *_C_ASSIGNMENTS)
+    or ((m & 0xC0) == 0xC0 and m not in P_MESSAGE_NAMES) else 1
+    for m in range(256))
+
 
 @dataclass
 class CChannelAssignment:
@@ -83,7 +100,8 @@ def create_c_assignment(su: bytes) -> CChannelAssignment:
 class PChannelSUDispatcher:
     """Consumes CRC-valid 12-byte SUs from decoded P-channel frames; routes
     user data into ISU reassembly -> ACARS parse, emits display lines and
-    C-channel assignment events.
+    C-channel assignment events.  ``display=False``: route only, and
+    return ``""`` (for a caller that reads no line).
     """
 
     def __init__(self, on_acars: Callable | None = None,
@@ -92,58 +110,66 @@ class PChannelSUDispatcher:
                  on_c_assignment: Callable | None = None,
                  downlink: bool = False,
                  do_not_display: tuple = (),
-                 db=None):
+                 db=None,
+                 display: bool = True):
         self.isudata = ISUData()
         self.parser = ParserISU(on_acars, on_fragment, on_error, db=db)
         self.parser.downlink = downlink
         self.on_c_assignment = on_c_assignment or (lambda item: None)
         self.do_not_display = set(do_not_display)
+        self.display = display
 
     def reset(self):
         self.isudata.reset()
 
     def dispatch(self, su: bytes) -> str:
         """Process one 12-byte SU (CRC already verified); returns the display
-        line ('' if suppressed)."""
+        line ('' if suppressed or not asked for)."""
         message = su[0]
-        hexpart = " ".join(f"0x{b:02X}" for b in su[:10])
+        if not self.display:
+            if not DISPLAY_ONLY[message]:
+                self._route(su, message)
+            return ""
+        extra = self._route(su, message)
         name = P_MESSAGE_NAMES.get(message)
-        extra = ""
-
         if message == 0x05:
             extra = self._psmc_rsmc(su)
         elif message == 0x0C:
             extra = self._satellite_id(su)
-        elif message == 0x11:
+        elif message == 0x40:
+            extra = self._pr_channel_control(su)
+        elif name is None:
+            name = "SSU" if (message & 0xC0) == 0xC0 else ""
+        if ((message & 0xC0) == 0xC0 and 0xC0 in self.do_not_display) or \
+                message in self.do_not_display:
+            return ""
+        hexpart = " ".join(f"0x{b:02X}" for b in su[:10])
+        return f"{hexpart} {name}{extra}"
+
+    def _route(self, su: bytes, message: int) -> str:
+        """Every side effect of one SU; returns the display line's note
+        (" missing" for an SSU whose ISU is not held, else "")."""
+        if message == 0x11:
             item = ACARSItem()
             item.isuitem.AESID = su[1] << 16 | su[2] << 8 | su[3]
             item.isuitem.GESID = su[4]
             item.hastext = item.downlink = item.nonacars = item.valid = True
             item.message = "Log on confirm"
             self.parser.on_acars(item)
-        elif message in (0x31, 0x32, 0x33, 0x34):
+        elif message in _C_ASSIGNMENTS:
             self.on_c_assignment(create_c_assignment(su))
-            self._send_assignment_text(su, name)
+            self._send_assignment_text(su, P_MESSAGE_NAMES[message])
         elif message == 0x21:
-            self._send_assignment_text(su, name)
-        elif message == 0x40:
-            extra = self._pr_channel_control(su)
+            self._send_assignment_text(su, P_MESSAGE_NAMES[message])
         elif message == 0x71:
             self.isudata.update(su[:10])
-        elif name is None and (message & 0xC0) == 0xC0:
-            name = "SSU"
+        elif not DISPLAY_ONLY[message]:     # an SSU
             done = self.isudata.update(su[:10])
             if done is not None:
                 self.parser.parse(done)
             elif self.isudata.missingssu:
-                extra = " missing"
-
-        if name is None:
-            name = ""
-        if ((message & 0xC0) == 0xC0 and 0xC0 in self.do_not_display) or \
-                message in self.do_not_display:
-            return ""
-        return f"{hexpart} {name}{extra}"
+                return " missing"
+        return ""
 
     # ---- system table decoders ----
 

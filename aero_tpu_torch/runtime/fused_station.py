@@ -92,7 +92,8 @@ from aero_tpu_torch.protocol.batch_c_framing import BatchCChannelFramerBank
 from aero_tpu_torch.protocol.batch_framing import BatchPChannelFramerBank
 from aero_tpu_torch.protocol.framing import apply_slip
 from aero_tpu_torch.protocol.rt_framing import RTChannelFramer
-from aero_tpu_torch.protocol.su_dispatch import PChannelSUDispatcher
+from aero_tpu_torch.protocol.su_dispatch import (DISPLAY_ONLY,
+                                                PChannelSUDispatcher)
 from aero_tpu_torch.utils.graphs import GraphedStep
 from aero_tpu_torch.utils.profiling import TRACER, traced
 from aero_tpu_torch.utils.trees import tree_map
@@ -148,10 +149,20 @@ def _watcher_taps(out_rate: float, M: int, device) -> torch.Tensor:
 
 def _traced_account(stats, data_rate, evs, dispatcher=None) -> None:
     """``account_framer_events`` as a ``framers.dispatch`` span, for a
-    framer that returned events."""
+    framer that returned events; then counts, outside the span, the
+    CRC-good SUs handed to a P dispatcher (``su.dispatched``) and those
+    of them that a dispatcher without display returned at once
+    (``su.display_only``)."""
     if evs:
+        ok0 = stats.su_ok
         with TRACER.span("framers.dispatch"):
             account_framer_events(stats, data_rate, evs, dispatcher)
+        if dispatcher is not None and data_rate != 8400:
+            TRACER.count("su.dispatched", stats.su_ok - ok0)
+            if not dispatcher.display:
+                TRACER.count("su.display_only", sum(
+                    DISPLAY_ONLY[ev.infofield[12 * k]] for ev in evs
+                    for k, ok in enumerate(ev.su_crc_ok) if ok))
 
 
 class FusedStation:
@@ -294,8 +305,10 @@ class FusedStation:
                 bank = self._batch_banks[key] = BatchPChannelFramerBank(
                     rate, group_topics, device=self.device)
                 for t in group_topics:
+                    # the drain reads no display line
                     self.dispatchers[t] = PChannelSUDispatcher(
-                        on_acars=self._mk_sink(t), db=self._db)
+                        on_acars=self._mk_sink(t), db=self._db,
+                        display=False)
             self.framers.update(bank.framers)
 
         self._gain = gain

@@ -7,7 +7,11 @@
    helpers that run on the card import nothing of ``aero_tpu`` and never
    ``jax``.
 3. Drift guard: each verbatim copy equals its ``aero_tpu`` original after
-   the ``aero_tpu`` -> ``aero_tpu_torch`` import rewrite, the native C++
+   the ``aero_tpu`` -> ``aero_tpu_torch`` import rewrite (the SU
+   dispatcher and the ACARS parser are no copies: the port routes without
+   the display line where none is asked for and strips parity by table,
+   and tests/test_torch_su_dispatch.py holds both to the originals'
+   outputs on the same SU streams), the native C++
    sources are byte-for-byte copies, the port's native libraries give the
    reference's outputs, and the copied functions, methods and modules
    (station accounting, the fused station's ``quantize`` /
@@ -43,7 +47,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "aero_tpu_torch")
 
 VERBATIM = ["protocol/crc.py", "protocol/scrambler.py",
-            "protocol/interleaver.py", "protocol/isu.py", "protocol/acars.py", "protocol/su_dispatch.py",
+            "protocol/interleaver.py", "protocol/isu.py",
             "protocol/database.py", "protocol/c_framing.py",
             "channelizer/config.py", "ops/design.py", "io/output.py",
             "io/forwarder.py", "utils/signals.py", "utils/logging.py",
@@ -56,6 +60,7 @@ NATIVE_SOURCES = ["native/ingest.cc", "native/viterbi.cc"]
 
 # files outside the package that run on the card's machine (no JAX there)
 CARD_SIDE = ["chip_smoke.py", "tools/torch_profile_step.py",
+             "tools/su_dispatch_time.py",
              "tools/viterbi_time.py", "tools/l54_burst_level.py",
              "tools/torch_parity_check.py", "tools/torch_make_fixture.py",
              "tools/frame_diff.py", "tests/torch_soft.py",

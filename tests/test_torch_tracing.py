@@ -13,7 +13,9 @@ R burst watcher), fed block by block and flushed:
   stats line, and without the flag the line is as before;
 - on a small C-band bank with batched framing, each drain's batched C
   decode is a span inside the C framers', and its counters agree with
-  the frames and voice out.
+  the frames and voice out;
+- on the ACARS bank of tests/torch_station_bank.py, the SU counters agree
+  with the SUs the station's dispatchers were handed.
 """
 
 import json
@@ -408,3 +410,37 @@ def test_the_c_bank_decode_is_a_span_inside_the_c_framers(tracer):
     assert len(voice) >= 6
     assert (c["c.decode.rows"] == c["c.decode.rows_launched"]
             == c["c.frames"] == c["voice.frames"] == len(voice))
+
+
+def test_su_counters_count_dispatched_and_display_only_sus(tracer):
+    """On the ACARS bank of tests/torch_station_bank.py (two 1200 bps
+    VFOs, each an ACARS ISU padded with fill SUs after lead frames of
+    zero SUs): ``su.dispatched`` counts the CRC-good SUs the station's
+    dispatchers were handed, and ``su.display_only`` those that carry no
+    ISU, log-on or assignment (here fill and type 0x00), which a
+    dispatcher without display returns at once."""
+    from torch_station_bank import INI, make_wideband
+    wb = make_wideband()
+    routed = {0x11, 0x21, 0x31, 0x32, 0x33, 0x34, 0x71}
+    tracer.on = True
+    items, handed = [], []
+    st = FusedStation(load_ini(INI, is_text=True), ingest_dtype="int4",
+                      device="cpu",
+                      on_acars=lambda v, item: items.append(item.message))
+    for d in st.dispatchers.values():
+        assert d.display is False
+        d.dispatch = (lambda su, _f=d.dispatch:
+                      handed.append(su[0]) or _f(su))
+    L = st.block_len
+    w = np.concatenate([wb, np.zeros(2 * L, np.complex64)])
+    for i in range(len(w) // L):
+        st.process(w[i * L:(i + 1) * L])
+    st.flush()
+    tracer.on = False
+    c = tracer.take().counts
+    assert "BATCH XX" in items and "BATCH YY" in items
+    assert c["su.dispatched"] == len(handed) == st.stats.su_ok
+    shown = [m for m in handed if m not in routed and m < 0xC0]
+    assert c["su.display_only"] == len(shown)
+    # the ISUs' SUs are routed; fill and the lead frames' zero SUs not
+    assert 0 < len(shown) < len(handed) and {0x00, 0x01} == set(shown)
